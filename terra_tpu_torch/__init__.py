@@ -1,0 +1,28 @@
+"""terra_tpu_torch: the terra_tpu path tracer in PyTorch, with CUDA kernels
+for NVIDIA Hopper.
+
+A port of ``terra_tpu`` (JAX on a TPU) that keeps its module paths and
+names. It imports neither JAX nor ``terra_tpu``; the JAX package is the
+reference its tests compare against. Tensors live on the device the caller
+names (``device=`` of the scene builders); CPU tensors take the plain
+PyTorch versions of the kernels, CUDA tensors the kernels themselves.
+
+    import terra_tpu_torch as ttt
+    scene = ttt.scenes.courtyard(device="cuda")
+    cam = ttt.scenes.courtyard_camera(device="cuda")
+    film = ttt.render(scene, cam, ttt.RenderOptions(width=384, height=384,
+                      samples_per_pixel=8, bounces=2,
+                      integrator=ttt.Integrator.DIRECT))
+    image = ttt.develop(film)
+"""
+
+from .scene import (  # noqa: F401
+    ATTR, Accelerator, BSDFType, Camera, Geometry, Integrator, Intersector, LightPick,
+    LightTable, MaterialTable, RenderOptions, SamplingMethod, Scene, TextureAtlas, Tonemap,
+    commit,
+)
+from .film import Film, develop, tonemap  # noqa: F401
+from .render import render, trace  # noqa: F401
+from . import scenes  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,34 @@
+"""The PyTorch port stands alone: it imports neither JAX nor terra_tpu."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "terra_tpu_torch"
+
+_CHECK = """
+import importlib, pkgutil, sys
+import terra_tpu_torch
+for m in pkgutil.walk_packages(terra_tpu_torch.__path__, "terra_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "terra_tpu"))
+print("LEAKED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_leaves_jax_out():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_imports_jax_or_reference():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|terra_tpu)(\s|\.|$)", re.M)
+    sources = sorted(PKG.rglob("*.py"))
+    assert sources
+    offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
