@@ -7,30 +7,54 @@ Phases, one printed line or more each; any failure raises and the script
 exits non-zero (there is no CPU fallback):
 
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  1. build the CUDA traversal kernel (nvcc, sm_90a) and the native SAH
-     builder (g++) from the sources in this checkout, timed;
-  2. kernel gate on the 241,764-triangle courtyard: the CUDA kernel against
-     its plain PyTorch version on the card (2^20 camera rays, 2^18 uniform
-     random rays, 2^18 occlusion rays with t_max, plus watertight), and
-     2048 camera rays against brute force; CUDA-event times after warm-up;
-  3. the main path: ``terra_tpu_torch.render`` of the production courtyard
-     render (384x384, 8 spp, 2 bounces, DIRECT, persistent lanes of 8),
-     with the kernel launches it made;
-  4. twin: a small courtyard rendered on CPU tensors (plain traversal) and
-     on CUDA tensors (the kernel), compared with the golden-test budgets.
+  1. build both CUDA traversal kernels (nvcc, sm_90a) and the native SAH
+     builder (g++) from the sources in this checkout, all at once, timed;
+  2. binary-kernel gate on the 241,764-triangle courtyard: the kernel
+     against its plain PyTorch version on the card (2^20 camera rays, 2^18
+     uniform random rays, 2^18 occlusion rays with t_max, plus
+     watertight), and 2048 camera rays against brute force; CUDA-event
+     times after warm-up;
+  2b. BVH4 gate on the same courtyard and on the 1,013,964-triangle
+     courtyard (bench config 3m): for the f32, bf16 and paged tables (S by
+     the port's rule, and S = 1), the same five ray batches, each held
+     against ``raycast4_plain`` on the card, against the binary kernel on
+     the same tree, and against brute force on 2048 rays; kernel and plain
+     times; the counted kernel against the uncounted one, with the
+     ``count_decode`` totals;
+  3. the production courtyard render (config 3b: 384x384, 8 spp, 2
+     bounces, DIRECT, persistent lanes of 8), with the table kind
+     ``pack_tables_auto`` chose and the launches of each kernel;
+  3m. the 1M-triangle path: ``traverse_packed`` on bf16 tables over 2^20
+     camera rays, with its counters; the render of the 1M scene at 3b's
+     settings; the per-stage breakdown of ``profile.stage_breakdown``;
+  4. twins: a small courtyard rendered on CPU tensors (plain traversal)
+     and on CUDA tensors (the kernels), once with each table kind (binary,
+     f32, bf16, paged with 4 resident nodes), compared with the golden-test
+     budgets.
 
-The last two lines are a JSON object describing the kernel, the
-``nvidia-smi`` line, and then ``{"ok": true, "device": {...}}``.
+The main path is every run through the user's entry points: the renders of
+phases 3 and 3m, ``traverse_packed`` in phase 3m, and the CUDA half of each
+twin in phase 4 (the binary kernel is on it only there, since
+``wide_mode`` picks the BVH4 overlay for both courtyards). Each is run
+with the launch counts set to 0 and read after; launches that compare a
+kernel with its plain version are not counted. The last three lines are a
+JSON object describing the kernels, the ``nvidia-smi`` line, and then
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
+
+N_CHECK = 2048  # rays held against brute force
 
 
 def _smi() -> str:
@@ -38,10 +62,11 @@ def _smi() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def _ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    by CUDA events."""
-    fn()
+def _ms(torch, fn, reps: int, warm_up: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
+    after one warm-up run (``warm_up=False``: the caller has just run it)."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -52,26 +77,27 @@ def _ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _compare(name, kernel, plain, t_max=None):
-    """Kernel (best_t, best_i) vs plain with the traversal test budgets:
-    hit masks equal, t within rtol 1e-4, >= 99% same triangle. Returns the
+def _compare(name, kernel, plain, t_max=None, any_hit=False):
+    """Kernel (best_t, best_i) vs a reference with the traversal test
+    budgets: hit masks equal, t within rtol 1e-4, >= 99% same triangle
+    (any-hit stops at any hit, so there only the masks count). Returns the
     max |dt| over hits."""
     from terra_tpu_torch.intersect import T_FAR
 
-    (tk, ik), (tp, ip) = kernel, plain
+    (tk, ik), (tp, ip) = kernel[:2], plain[:2]
     far = T_FAR if t_max is None else t_max
     hk, hp = tk < far, tp < far
     n_bad_hit = int((hk != hp).sum())
     hit = hk & hp
     dt = (tk[hit] - tp[hit]).abs()
     max_err = float(dt.max()) if bool(hit.any()) else 0.0
-    t_ok = bool((dt <= 1e-4 * tp[hit].abs()).all())
+    t_ok = any_hit or bool((dt <= 1e-4 * tp[hit].abs()).all())
     same_tri = float((ik[hit] == ip[hit]).float().mean()) if bool(hit.any()) else 1.0
     exact = int((tk != tp).sum()) + int((ik != ip).sum())
     print(f"  {name}: rays {tk.numel()} hits {int(hk.sum())} hit-mask mismatches {n_bad_hit} "
           f"max|dt| {max_err:.3e} same-tri {same_tri:.6f} words differing {exact}", flush=True)
-    if n_bad_hit or not t_ok or same_tri < 0.99:
-        raise AssertionError(f"kernel disagrees with raycast_plain on {name}")
+    if n_bad_hit or not t_ok or (same_tri < 0.99 and not any_hit):
+        raise AssertionError(f"kernel disagrees with its reference on {name}")
     return max_err
 
 
@@ -89,6 +115,193 @@ def _twin_match(img, ref, tol=2e-3, flip_budget=8e-3, energy_tol=5e-3):
         raise AssertionError("cpu and cuda renders differ beyond the twin budgets")
 
 
+def _ptxas_summary(log: str):
+    """The distinct ptxas register / stack / spill lines of a build, each
+    with the number of kernels it describes."""
+    lines = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    for line, k in sorted(collections.Counter(lines).items()):
+        print(f"  ptxas (x{k}): {line}", flush=True)
+
+
+def _camera_rays(torch, cam, side, dev):
+    """side^2 jittered camera rays of the courtyard camera, nudged off the
+    eye as the render nudges them."""
+    import terra_tpu_torch as ttt
+    from terra_tpu_torch import camera, intersect
+    from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.render import _lane_ids
+
+    opts = ttt.RenderOptions(width=side, height=side, samples_per_pixel=1, subpixel_jitter=0.5)
+    pixel_idx, px, py, sample_idx = _lane_ids(opts, 1, 0, 0, side, dev)
+    r1, r2 = rng.path_uniform2(rng.key_from_seed(0), pixel_idx, sample_idx, 0, 0)
+    o, d = camera.generate_rays(cam, side, side, px, py, 0.5, r1, r2)
+    return (o + d * intersect.RAY_OFFSET_DIR).contiguous(), d.contiguous()
+
+
+def _random_rays(torch, bvh, n, dev, seed):
+    """n rays with origins uniform in the root box and uniform directions,
+    and t_max values for occlusion queries."""
+    gen = np.random.default_rng(seed)
+    lo, hi = bvh.node_min[0].cpu().numpy(), bvh.node_max[0].cpu().numpy()
+    o = torch.as_tensor(lo + gen.random((n, 3), np.float32) * (hi - lo), device=dev)
+    v = gen.normal(size=(n, 3)).astype(np.float32)
+    d = torch.as_tensor(v / np.linalg.norm(v, axis=1, keepdims=True), device=dev)
+    t_occ = torch.as_tensor(gen.uniform(0.05, 30.0, n).astype(np.float32), device=dev)
+    return o, d, t_occ
+
+
+def _cases(o_cam, d_cam, o_inc, d_inc, t_occ):
+    """The five ray batches of the kernel gates."""
+    return [("camera 2^20 closest-hit mt", o_cam, d_cam, None, False, "mt"),
+            ("random 2^18 closest-hit mt", o_inc, d_inc, None, False, "mt"),
+            ("random 2^18 occlusion t_max+any_hit mt", o_inc, d_inc, t_occ, True, "mt"),
+            ("random 2^18 occlusion t_max mt", o_inc, d_inc, t_occ, False, "mt"),
+            ("random 2^18 closest-hit watertight", o_inc, d_inc, None, False, "watertight")]
+
+
+def _brute(torch, scene, o, d, algo):
+    """Closest hit of 2048 rays spread over the batch, by brute force over
+    every triangle (in blocks of 8192 triangles). Returns (rows, t, tri,
+    n_off).
+
+    The reference's watertight test snaps products that cancel to within a
+    few ulps to 0, and where two of its three edge functions snap it can
+    accept a triangle the ray passes far from (terra_tpu/intersect.py
+    ``watertight_components``; ROADMAP queue C). A BVH walk never tests
+    such a triangle, since its box test fails first. Rays whose brute-force
+    hit point lies off the hit triangle's bounding box are left out of
+    ``rows``; ``n_off`` counts them."""
+    from terra_tpu_torch import intersect
+
+    rows = torch.arange(0, o.shape[0], o.shape[0] // N_CHECK, device=o.device)[:N_CHECK]
+    corners = scene.geometry.corners()
+    h = intersect.raycast_brute(o[rows], d[rows], *corners, tri_block=8192, algo=algo)
+    tri = torch.where(h.hit, h.tri, 0)
+    p = o[rows] + h.t[:, None] * d[rows]
+    lo = torch.minimum(torch.minimum(corners[0][tri], corners[1][tri]), corners[2][tri])
+    hi = torch.maximum(torch.maximum(corners[0][tri], corners[1][tri]), corners[2][tri])
+    tol = 1e-3 * (1.0 + p.abs())
+    off = h.hit & ((p < lo - tol) | (p > hi + tol)).any(dim=1)
+    return rows[~off], h.t[~off], tri[~off], int(off.sum())
+
+
+def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
+    """Phase 2b on one scene. Returns {mode: {"max_abs_err", "ms", "plain_ms"}}
+    of its camera batch, and the overall max |dt| against the plain walk."""
+    bvh = scene.bvh
+    corners = scene.geometry.corners()
+    o_cam, d_cam = _camera_rays(torch, cam, 1024, dev)
+    o_inc, d_inc, t_occ = _random_rays(torch, bvh, 1 << 18, dev, seed)
+    cases = _cases(o_cam, d_cam, o_inc, d_inc, t_occ)
+    binary = pt.pack_tables(bvh, *corners)
+    refs = {}
+    t0 = time.perf_counter()
+    for name, o, d, tm, any_hit, algo in cases:
+        refs[name] = (pt.raycast_cuda(binary, o, d, tm, any_hit, algo),
+                      *_brute(torch, scene, o, d, algo))
+    torch.cuda.synchronize()
+    print(f"phase 2b: {label}: {scene.geometry.num_triangles} tris, {bvh.num_wide} wide nodes, "
+          f"wide depth {bvh.wide_depth}, {int((bvh.wide_src < 0).sum())} of "
+          f"{4 * bvh.num_wide} child slots empty; binary-kernel and brute-force references "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, o, d, tm, any_hit, algo in cases:
+        ms = _ms(torch, lambda: pt.raycast_cuda(binary, o, d, tm, any_hit, algo), 20)
+        print(f"  binary {name}: kernel {ms:.3f} ms ({o.shape[0] / ms / 1e3:.1f} Mrays/s)",
+              flush=True)
+    tables = {"f32": pt.pack_tables_wide(bvh, *corners, box_enc="f32"),
+              "bf16": pt.pack_tables_wide(bvh, *corners, box_enc="bf16"),
+              "paged": pt.pack_tables_paged(bvh, *corners),
+              "paged_s1": pt.pack_tables_paged(bvh, *corners, resident_cap=1)}
+    out, max_err = {}, 0.0
+    for mode, tab in tables.items():
+        print(f"  [{label} {mode}] S={tab.s_resident} node table "
+              f"{(tab.nodes.numel() + tab.links.numel()) * 4 / 2**20:.2f} MiB resident",
+              flush=True)
+        for name, o, d, tm, any_hit, algo in cases:
+            k = pt.raycast4_cuda(tab, o, d, tm, any_hit, algo)
+            p = pt.raycast4_plain(tab, o, d, tm, any_hit, algo)
+            torch.cuda.synchronize()
+            err = _compare(f"{mode} {name} vs raycast4_plain", k, p, tm, any_hit)
+            max_err = max(max_err, err)
+            kb, rows, bt, bi, n_off = refs[name]
+            _compare(f"{mode} {name} vs binary kernel", k, kb, tm, any_hit)
+            tmr = None if tm is None else tm[rows]
+            _compare(f"{mode} {name} vs brute force ({N_CHECK} rays, {n_off} off-triangle "
+                     f"brute-force hits left out)", (k[0][rows], k[1][rows]), (bt, bi), tmr,
+                     any_hit)
+            kernel_ms = _ms(torch, lambda: pt.raycast4_cuda(tab, o, d, tm, any_hit, algo), 20)
+            # the comparison run above was the plain walk's warm-up
+            plain_ms = _ms(torch, lambda: pt.raycast4_plain(tab, o, d, tm, any_hit, algo), 1,
+                           warm_up=False)
+            print(f"  {mode} {name}: kernel {kernel_ms:.3f} ms "
+                  f"({o.shape[0] / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.3f} ms",
+                  flush=True)
+            if name.startswith("camera"):
+                out[mode] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+        for name, o, d, tm, any_hit, algo in cases[:2]:
+            k0 = pt.raycast4_cuda(tab, o, d, tm, any_hit, algo)
+            k1 = pt.raycast4_cuda(tab, o, d, tm, any_hit, algo, count=True)
+            same = torch.equal(k0[0], k1[0]) and torch.equal(k0[1], k1[1])
+            p1 = pt.raycast4_plain(tab, o, d, tm, any_hit, algo, count=True)
+            same = same and all(torch.equal(a, b) for a, b in zip(k1, p1))
+            c = pt.count_decode(k1[2])
+            util = float(np.mean(c["pops"] / np.maximum(c["iters"], 1)))
+            kernel_ms = _ms(torch, lambda: pt.raycast4_cuda(tab, o, d, tm, any_hit, algo,
+                                                            count=True), 20)
+            plain_ms = _ms(torch, lambda: pt.raycast4_plain(tab, o, d, tm, any_hit, algo,
+                                                            count=True), 1, warm_up=False)
+            print(f"  {mode} {name} counted: identical to uncounted and to the counted plain "
+                  f"walk {same}; kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; warps "
+                  f"{len(c['iters'])}, iters {int(c['iters'].sum())}, pops "
+                  f"{int(c['pops'].sum())}, leaves {int(c['leaves'].sum())}, paged "
+                  f"{int(c['paged'].sum())}; mean pops/iters per warp {util:.2f} of 32",
+                  flush=True)
+            pages = 0 < tab.s_resident < tab.num_wide
+            if not same or bool(c["paged"].sum() > 0) != pages:
+                raise AssertionError(f"counted {mode} run differs from the uncounted one or "
+                                     f"the counted plain walk, or counts paged visits wrongly")
+    return out, max_err
+
+
+def _render(torch, ttt, pt, scene, cam, opts, label):
+    """One render of the main path after a small warm-up, with the launch
+    counts of both kernels. Returns (seconds, image, launches, launches4)."""
+    ttt.render(scene, cam, opts.replace(width=32, height=32), seed=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pt.launches = pt.launches4 = 0
+    t0 = time.perf_counter()
+    film = ttt.render(scene, cam, opts, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, launches4 = pt.launches, pt.launches4
+    img = ttt.develop(film)
+    nominal = opts.width * opts.height * opts.samples_per_pixel * (opts.bounces + 1) * 2
+    finite = bool(torch.isfinite(img).all())
+    mean = float(img.mean())
+    out = os.path.join(tempfile.gettempdir(), f"terra_tpu_torch_{label}.npy")
+    np.save(out, img.cpu().numpy())
+    print(f"  {label} render {opts.width}x{opts.height}x{opts.samples_per_pixel}spp bounces "
+          f"{opts.bounces} DIRECT lanes of {opts.samples_per_lane}: table kind "
+          f"{pt.wide_mode(scene.bvh) or 'binary'}, {seconds:.3f} s, nominal "
+          f"{nominal / seconds / 1e6:.2f} Mrays/s ({nominal} rays = pixels*spp*(bounces+1)*2), "
+          f"launches binary {launches} bvh4 {launches4}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean {mean:.5f}, "
+          f"finite {finite}, written to {out}", flush=True)
+    if launches + launches4 <= 0 or not finite or not mean > 0.0:
+        raise AssertionError(f"{label} render failed its checks")
+    return seconds, launches, launches4
+
+
+TWIN_TABLES = {
+    "binary": lambda pt: pt.pack_tables,
+    "f32": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="f32"),
+    "bf16": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="bf16"),
+    "paged4": lambda pt: lambda bvh, *c: pt.pack_tables_paged(bvh, *c, resident_cap=4),
+}
+
+
 def main() -> None:
     import torch
 
@@ -104,25 +317,28 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import terra_tpu_torch as ttt
-    from terra_tpu_torch import _build, camera, intersect, native
+    from terra_tpu_torch import _build, intersect, native, profile
     from terra_tpu_torch.accel import pallas_traverse as pt
-    from terra_tpu_torch.ops import rng
-    from terra_tpu_torch.render import _lane_ids
 
-    # 1. builds
-    t0 = time.perf_counter()
-    pt.load_kernel()
-    t_kernel = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.load()
-    t_native = time.perf_counter() - t0
-    print(f"phase 1: built bvh_traverse (nvcc sm_90a) in {t_kernel:.2f} s, "
-          f"terra_native (g++) in {t_native:.2f} s", flush=True)
-    for line in _build.build_log(pt.kernel_path()).splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    # 1. builds, all started together
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
 
-    # 2. kernel gate on the full courtyard
+    with ThreadPoolExecutor(3) as ex:
+        futs = {name: ex.submit(timed, fn) for name, fn in
+                (("bvh_traverse", pt.load_kernel), ("bvh4_traverse", pt.load_kernel4),
+                 ("terra_native", native.load))}
+        build_s = {name: f.result() for name, f in futs.items()}
+    print(f"phase 1: built bvh_traverse (nvcc sm_90a) in {build_s['bvh_traverse']:.2f} s, "
+          f"bvh4_traverse (nvcc sm_90a) in {build_s['bvh4_traverse']:.2f} s, "
+          f"terra_native (g++) in {build_s['terra_native']:.2f} s, in parallel", flush=True)
+    for name, path in (("bvh_traverse", pt.kernel_path()), ("bvh4_traverse", pt.kernel4_path())):
+        print(f"  {name}:", flush=True)
+        _ptxas_summary(_build.build_log(path))
+
+    # 2. binary-kernel gate on the full courtyard
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     scene = ttt.scenes.courtyard(device=dev)
@@ -135,29 +351,11 @@ def main() -> None:
           f"tables {tables.nodes.numel() * 4 / 2**20:.1f} MiB nodes, "
           f"{(tables.tris.numel() + tables.tri_id.numel()) * 4 / 2**20:.1f} MiB tris", flush=True)
     cam = ttt.scenes.courtyard_camera(device=dev)
-    w = 1024
-    opts_cam = ttt.RenderOptions(width=w, height=w, samples_per_pixel=1, subpixel_jitter=0.5)
-    pixel_idx, px, py, sample_idx = _lane_ids(opts_cam, 1, 0, 0, w, dev)
-    r1, r2 = rng.path_uniform2(rng.key_from_seed(0), pixel_idx, sample_idx, 0, 0)
-    o_cam, d_cam = camera.generate_rays(cam, w, w, px, py, 0.5, r1, r2)
-    o_cam = (o_cam + d_cam * intersect.RAY_OFFSET_DIR).contiguous()
-    d_cam = d_cam.contiguous()
-    gen = np.random.default_rng(11)
-    n_inc = 1 << 18
-    lo, hi = bvh.node_min[0].cpu().numpy(), bvh.node_max[0].cpu().numpy()
-    o_inc = torch.as_tensor(lo + gen.random((n_inc, 3), np.float32) * (hi - lo), device=dev)
-    v = gen.normal(size=(n_inc, 3)).astype(np.float32)
-    d_inc = torch.as_tensor(v / np.linalg.norm(v, axis=1, keepdims=True), device=dev)
-    t_occ = torch.as_tensor(gen.uniform(0.05, 30.0, n_inc).astype(np.float32), device=dev)
-
-    cases = [("camera 2^20 closest-hit mt", o_cam, d_cam, None, False, "mt"),
-             ("random 2^18 closest-hit mt", o_inc, d_inc, None, False, "mt"),
-             ("random 2^18 occlusion t_max+any_hit mt", o_inc, d_inc, t_occ, True, "mt"),
-             ("random 2^18 occlusion t_max mt", o_inc, d_inc, t_occ, False, "mt"),
-             ("random 2^18 closest-hit watertight", o_inc, d_inc, None, False, "watertight")]
+    o_cam, d_cam = _camera_rays(torch, cam, 1024, dev)
+    o_inc, d_inc, t_occ = _random_rays(torch, bvh, 1 << 18, dev, 11)
     max_err = 0.0
     times = {}
-    for name, o, d, tm, any_hit, algo in cases:
+    for name, o, d, tm, any_hit, algo in _cases(o_cam, d_cam, o_inc, d_inc, t_occ):
         k = pt.raycast_cuda(tables, o, d, tm, any_hit, algo)
         p = pt.raycast_plain(tables, o, d, tm, any_hit, algo)
         torch.cuda.synchronize()
@@ -168,66 +366,105 @@ def main() -> None:
         print(f"  {name}: kernel {kernel_ms:.3f} ms ({o.shape[0] / kernel_ms / 1e3:.1f} Mrays/s), "
               f"plain {plain_ms:.3f} ms ({o.shape[0] / plain_ms / 1e3:.2f} Mrays/s)", flush=True)
 
-    n_check = 2048
-    hk = pt.raycast(scene, o_cam[:n_check], d_cam[:n_check])
-    hb = intersect.raycast_brute(o_cam[:n_check], d_cam[:n_check], *scene.geometry.corners())
+    hk = pt.raycast(scene, o_cam[:N_CHECK], d_cam[:N_CHECK], tables=tables)
+    hb = intersect.raycast_brute(o_cam[:N_CHECK], d_cam[:N_CHECK], *scene.geometry.corners())
     n_bad = int((hk.hit != hb.hit).sum())
     both = hk.hit & hb.hit
     t_close = bool(torch.allclose(hk.t[both], hb.t[both], rtol=1e-4, atol=1e-4))
     same = float((hk.tri[both] == hb.tri[both]).float().mean())
-    print(f"  brute force {n_check} camera rays: hit-mask mismatches {n_bad}, t close {t_close}, "
+    print(f"  brute force {N_CHECK} camera rays: hit-mask mismatches {n_bad}, t close {t_close}, "
           f"same-tri {same:.4f}", flush=True)
     if n_bad or not t_close:
         raise AssertionError("kernel disagrees with brute force")
 
-    # 3. the main path: the production courtyard render
+    # 2b. BVH4 gate on both courtyards
+    t0 = time.perf_counter()
+    mega = ttt.scenes.courtyard(grid=690, columns=40, device=dev)
+    torch.cuda.synchronize()
+    t_mega = time.perf_counter() - t0
+    print(f"phase 2b: 1M courtyard built on the host and committed to cuda in {t_mega:.2f} s "
+          f"({mega.geometry.num_triangles} tris, {mega.bvh.num_leaves} leaves, depth "
+          f"{mega.bvh.depth})", flush=True)
+    gate4 = {}
+    max_err4 = 0.0
+    for label, sc, seed in (("courtyard 242k", scene, 11), ("courtyard 1M", mega, 12)):
+        gate4[label], err = _bvh4_gate(torch, pt, sc, label, cam, dev, seed)
+        max_err4 = max(max_err4, err)
+
+    # 3. the production courtyard render (config 3b)
+    main_launches = collections.Counter()
     opts = ttt.RenderOptions(width=384, height=384, samples_per_pixel=8, bounces=2,
                              integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
                              samples_per_lane=8)
-    ttt.render(scene, cam, opts.replace(width=32, height=32), seed=1)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pt.launches = 0
-    t0 = time.perf_counter()
-    film = ttt.render(scene, cam, opts, seed=0)
-    torch.cuda.synchronize()
-    t_render = time.perf_counter() - t0
-    render_launches = pt.launches
-    img = ttt.develop(film)
-    nominal = opts.width * opts.height * opts.samples_per_pixel * (opts.bounces + 1) * 2
-    finite = bool(torch.isfinite(img).all())
-    mean = float(img.mean())
-    out = os.path.join(tempfile.gettempdir(), "terra_tpu_torch_courtyard.npy")
-    np.save(out, img.cpu().numpy())
-    print(f"phase 3: courtyard render 384x384x8spp bounces 2 DIRECT lanes of 8: {t_render:.3f} s, "
-          f"nominal {nominal / t_render / 1e6:.2f} Mrays/s ({nominal} rays = pixels*spp*"
-          f"(bounces+1)*2), kernel launches {render_launches}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean {mean:.5f}, "
-          f"finite {finite}, written to {out}", flush=True)
-    if render_launches <= 0 or not finite or not mean > 0.0:
-        raise AssertionError("main-path render failed its checks")
+    print("phase 3: config 3b", flush=True)
+    _, l2, l4 = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
+    main_launches.update(binary=l2, bvh4=l4)
 
-    # 4. twin: cpu tensors (plain) vs cuda tensors (kernel)
+    # 3m. the 1M-triangle path (config 3m)
+    print(f"phase 3m: config 3m, wide_mode {pt.wide_mode(mega.bvh)}", flush=True)
+    packed = pt.pack_tables_wide(mega.bvh, *mega.geometry.corners(), box_enc="bf16")
+    o_m, d_m = _camera_rays(torch, cam, 1024, dev)
+    pt.launches = pt.launches4 = 0
+    bt, bi = pt.traverse_packed(packed, o_m, d_m)
+    torch.cuda.synchronize()
+    main_launches.update(binary=pt.launches, bvh4=pt.launches4)
+    tp_ms = _ms(torch, lambda: pt.traverse_packed(packed, o_m, d_m), 20)
+    c = pt.count_decode(pt.traverse_packed(packed, o_m, d_m, count_steps=True)[2])
+    hits = int((bt < intersect.T_FAR).sum())
+    print(f"  traverse_packed bf16, 2^20 camera rays (unsorted): {tp_ms:.3f} ms "
+          f"({o_m.shape[0] / tp_ms / 1e3:.1f} Mrays/s), hits {hits}; counters: iters "
+          f"{int(c['iters'].sum())} pops {int(c['pops'].sum())} leaf tests "
+          f"{int(c['leaves'].sum())} paged {int(c['paged'].sum())}", flush=True)
+    if hits <= 0 or not bool(torch.isfinite(bt[bt < intersect.T_FAR]).all()):
+        raise AssertionError("traverse_packed on the 1M scene found no finite hits")
+    _, l2, l4 = _render(torch, ttt, pt, mega, cam, opts, "courtyard_1m")
+    main_launches.update(binary=l2, bvh4=l4)
+    if pt.wide_mode(mega.bvh) is not None and l4 <= 0:
+        raise AssertionError("the 1M render did not launch the BVH4 kernel")
+    stages = profile.stage_breakdown(mega, cam, opts, probe_lanes=1 << 18)
+    print("  stage breakdown (1M scene, 2^18 camera lanes, least of 3, CUDA events): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()), flush=True)
+
+    # 4. twins: cpu tensors (plain) vs cuda tensors (kernel), per table kind
     kw = dict(grid=40, columns=8)
     topts = ttt.RenderOptions(width=32, height=32, samples_per_pixel=4, bounces=2,
                               integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5)
-    imgs = []
-    for device in ("cpu", "cuda"):
-        t0 = time.perf_counter()
-        s = ttt.scenes.courtyard(**kw, device=device)
-        f = ttt.render(s, ttt.scenes.courtyard_camera(device=device), topts, seed=3)
-        imgs.append(f.mean().cpu().numpy())
-        print(f"phase 4: small courtyard ({s.geometry.num_triangles} tris) 32x32x4spp DIRECT on "
-              f"{device}: {time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}", flush=True)
-    _twin_match(imgs[1], imgs[0])
+    small = {device: ttt.scenes.courtyard(**kw, device=device) for device in ("cpu", "cuda")}
+    for kind, packer in TWIN_TABLES.items():
+        imgs = []
+        with mock.patch.object(pt, "pack_tables_auto", packer(pt)):
+            for device in ("cpu", "cuda"):
+                t0 = time.perf_counter()
+                pt.launches = pt.launches4 = 0
+                f = ttt.render(small[device], ttt.scenes.courtyard_camera(device=device), topts,
+                               seed=3)
+                imgs.append(f.mean().cpu().numpy())
+                if device == "cuda":
+                    main_launches.update(binary=pt.launches, bvh4=pt.launches4)
+                print(f"phase 4: {kind} tables, small courtyard "
+                      f"({small[device].geometry.num_triangles} tris) 32x32x4spp DIRECT on "
+                      f"{device}: {time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}, "
+                      f"launches binary {pt.launches} bvh4 {pt.launches4}", flush=True)
+        _twin_match(imgs[1], imgs[0])
 
+    print(f"main-path launches: {dict(main_launches)}", flush=True)
+    if main_launches["binary"] <= 0 or main_launches["bvh4"] <= 0:
+        raise AssertionError("a kernel of the main path was never launched")
     k_ms, p_ms = times["camera 2^20 closest-hit mt"]
-    print(json.dumps({"kernels": [{
-        "name": "bvh_traverse", "route": "cuda",
-        "source": "terra_tpu_torch/csrc/bvh_traverse.cu",
-        "replaces": "terra_tpu/accel/pallas_traverse.py:81",
-        "launches": render_launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+    mega4 = gate4["courtyard 1M"]
+    print(json.dumps({"kernels": [
+        {"name": "bvh_traverse", "route": "cuda",
+         "source": "terra_tpu_torch/csrc/bvh_traverse.cu",
+         "replaces": "terra_tpu/accel/pallas_traverse.py:81",
+         "launches": main_launches["binary"], "max_abs_err": max_err,
+         "ms": k_ms, "plain_ms": p_ms},
+        {"name": "bvh4_traverse", "route": "cuda",
+         "source": "terra_tpu_torch/csrc/bvh4_traverse.cu",
+         "replaces": "terra_tpu/accel/pallas_traverse.py:81",
+         "launches": main_launches["bvh4"], "max_abs_err": max_err4,
+         "ms": mega4["bf16"]["ms"], "plain_ms": mega4["bf16"]["plain_ms"],
+         "modes": {f"{label}/{mode}": v for label, g in gate4.items() for mode, v in g.items()}},
+    ]}), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

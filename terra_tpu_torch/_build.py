@@ -19,14 +19,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 
 def build_shared(cmd: list[str], sources: list[str], stem: str,
-                 timeout: float = 900.0) -> str:
+                 timeout: float = 900.0, deps: list[str] = ()) -> str:
     """Run ``cmd + ["-o", out] + sources`` unless ``out`` already exists.
 
-    Returns the library path. The compiler's messages (for nvcc with
-    ``-Xptxas -v``: registers, spills) are kept beside it as ``<out>.log``.
+    ``deps`` (headers the sources include) enter the hash but not the
+    command. Returns the library path. The compiler's messages (for nvcc
+    with ``-Xptxas -v``: registers, spills) are kept beside it as
+    ``<out>.log``.
     """
     h = hashlib.sha256("\0".join(cmd).encode())
-    for src in sources:
+    for src in [*sources, *deps]:
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

@@ -4,8 +4,8 @@ The port never imports JAX. The caller flattens the JAX ``Scene`` or
 ``Camera`` into nested dicts of NumPy arrays and plain values, one key per
 dataclass field (``bvh`` may be None), and these functions build the
 port's objects from them on ``device``, so that both packages render the
-same committed scene with the same tree. BVH fields the port does not read
-(the BVH4 overlay, the stackless threads) are ignored.
+same committed scene with the same tree and BVH4 overlay. BVH fields the
+port does not read (the stackless threads) are ignored.
 """
 from __future__ import annotations
 
@@ -46,9 +46,10 @@ def scene_from_numpy(d: dict, device="cpu") -> Scene:
     if d.get("bvh") is not None:
         b = d["bvh"]
         bvh = LBVH(**_tensors(b, ("node_min", "node_max", "node_left", "node_right", "leaf_tri",
-                                  "tri_order"), device),
+                                  "tri_order", "wide_child", "wide_src"), device),
                    leaf_size=int(b["leaf_size"]), num_leaves=int(b["num_leaves"]),
-                   depth=int(b["depth"]))
+                   depth=int(b["depth"]), num_wide=int(b["num_wide"]),
+                   wide_depth=int(b["wide_depth"]))
     return Scene(
         geometry=_fields(Geometry, d["geometry"], device),
         materials=materials,

@@ -1,0 +1,209 @@
+"""Metrics registry, rays/s counters and device traces (port of
+``terra_tpu/profile.py``).
+
+``Stats``, ``Profiler`` and ``ray_count`` are the reference's, unchanged.
+Device work is asynchronous to the host, so times on a CUDA device come
+from CUDA events on the current stream, and ``device_trace`` records a
+``torch.profiler`` trace (CPU and CUDA activities) where the reference
+used ``jax.profiler``.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+__all__ = ["Stats", "Profiler", "ray_count", "profiler", "device_trace",
+           "stage_breakdown"]
+
+
+@dataclass
+class Stats:
+    """Welford running stats: n, mean, variance, min, max, sum."""
+
+    n: int = 0
+    mean: float = 0.0
+    m2: float = 0.0
+    min: float = float("inf")
+    max: float = float("-inf")
+    sum: float = 0.0
+
+    def add(self, x: float):
+        self.n += 1
+        d = x - self.mean
+        self.mean += d / self.n
+        self.m2 += d * (x - self.mean)
+        self.min = min(self.min, x)
+        self.max = max(self.max, x)
+        self.sum += x
+
+    @property
+    def var(self) -> float:
+        return self.m2 / self.n if self.n > 1 else 0.0
+
+    def as_dict(self) -> dict:
+        return dict(n=self.n, avg=self.mean, var=self.var, min=self.min, max=self.max, sum=self.sum)
+
+
+class Profiler:
+    """Named targets, each a :class:`Stats`. Usage::
+
+        with profiler.clock("render"):
+            film = render(...)
+
+    ``clock`` reads the host clock: synchronise the device inside the block
+    to time device work."""
+
+    def __init__(self):
+        self.targets: Dict[str, Stats] = {}
+
+    def stats(self, target: str) -> Stats:
+        return self.targets.setdefault(target, Stats())
+
+    @contextlib.contextmanager
+    def clock(self, target: str):
+        t0 = time.perf_counter()
+        yield
+        self.stats(target).add(time.perf_counter() - t0)
+
+    def add_sample(self, target: str, value: float):
+        self.stats(target).add(value)
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.targets):
+            s = self.targets[name]
+            if "mrays" in name:  # throughput counters, not clocks
+                lines.append(
+                    f"{name:24s} n={s.n:6d} avg={s.mean:9.2f} Mrays/s "
+                    f"min={s.min:9.2f} max={s.max:9.2f}"
+                )
+            else:
+                lines.append(
+                    f"{name:24s} n={s.n:6d} avg={s.mean * 1e3:9.3f}ms "
+                    f"min={s.min * 1e3:9.3f}ms max={s.max * 1e3:9.3f}ms sum={s.sum:8.3f}s"
+                )
+        return "\n".join(lines)
+
+    def clear(self):
+        self.targets.clear()
+
+
+profiler = Profiler()
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str]):
+    """Record a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA activity when a device is present) into ``trace_dir/trace.json``
+    for chrome://tracing or Perfetto. Yields the profile (``key_averages()``
+    sums kernel time by name), or None when ``trace_dir`` is falsy."""
+    if not trace_dir:
+        yield None
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def _best_seconds(fn, device: torch.device, reps: int = 3) -> float:
+    """Least seconds of ``fn()`` over ``reps`` runs after a warm-up: CUDA
+    events on the current stream for a CUDA device, the host clock on the
+    CPU."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            best = min(best, start.elapsed_time(stop) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+@torch.no_grad()
+def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536) -> dict:
+    """Per-stage times on a probe wavefront of camera rays, each stage run
+    on the same inputs:
+
+      raycast — closest-hit traversal only
+      surface — raycast + shading-surface init
+      bounce  — one full bounce: raycast + surface + integrator (with its
+                shadow rays) + BSDF continuation
+
+    Results land in the module profiler under ``stage/*`` targets and are
+    returned as {stage: seconds} (the least of three runs after a warm-up;
+    CUDA events on a CUDA scene, the host clock on the CPU)."""
+    from . import camera as camera_mod, intersect
+    from .integrators import make_integrator
+    from .ops import rng as rng_mod
+    from .render import _context, _continue, _lane_ids, _pixel_jitter, _shade, _streams_for
+    from .surface import surface_init
+
+    dev = scene.device
+    key = rng_mod.key_from_seed(seed)
+    spp = max(probe_lanes // (opts.width * opts.height), 1)
+    pixel_idx, px, py, sample_idx = _lane_ids(opts, spp, 0, 0, opts.height, dev)
+    r1, r2 = _pixel_jitter(opts, key, pixel_idx, sample_idx)
+    o, d = camera_mod.generate_rays(cam, opts.width, opts.height, px, py,
+                                    opts.subpixel_jitter, r1, r2)
+    ctx_base = _context(scene, opts)
+    raycast = ctx_base["raycast"]
+    integrator = make_integrator(opts.integrator)
+    streams = _streams_for(opts.integrator, opts.env_nee)
+    ones = torch.ones_like(o)
+
+    def stage_raycast():
+        return raycast(o, d)
+
+    def stage_surface():
+        hit = raycast(o, d)
+        return surface_init(scene, ctx_base["tables"], o + d * intersect.RAY_OFFSET_DIR, d,
+                            hit.tri)
+
+    def stage_bounce():
+        u = rng_mod.path_uniform_bundle(key, pixel_idx, sample_idx, 0, streams)
+        hit = raycast(o, d)
+        surf, radiance = _shade(scene, ctx_base, integrator, hit, o, d, hit.hit, ones, 0, u)
+        return radiance, _continue(surf, u, -d, ones, ctx_base["present"])
+
+    out = {}
+    n = int(o.shape[0])
+    for name, fn in (("raycast", stage_raycast), ("surface", stage_surface),
+                     ("bounce", stage_bounce)):
+        best = _best_seconds(fn, dev)
+        out[name] = best
+        profiler.add_sample(f"stage/{name}", best)
+        profiler.add_sample(f"stage/{name}_mrays", n / best / 1e6)
+    return out
+
+
+def ray_count(opts, avg_path_length: Optional[float] = None) -> float:
+    """Nominal rays traced per full render at ``opts``: lanes times
+    (bounces + 1) path raycasts, plus 1 (NEE) or 2 (MIS) shadow rays per
+    bounce iteration. Early termination makes the true number lower; pass
+    ``avg_path_length`` for a measured occupancy."""
+    lanes = opts.width * opts.height * opts.samples_per_pixel
+    per_bounce = 1
+    integ = int(opts.integrator)
+    if integ == 1:  # DIRECT
+        per_bounce += 1
+    elif integ == 2 or integ == 6:  # DIRECT_MIS / DEBUG_MIS_WEIGHTS
+        per_bounce += 2
+    depth = avg_path_length if avg_path_length is not None else (opts.bounces + 1)
+    return float(lanes) * per_bounce * depth

@@ -39,12 +39,13 @@ MAX_WAVEFRONT_LANES = 1 << 21
 def make_raycast_fn(scene: Scene, opts: RenderOptions):
     """Raycast closure: nudges the origin by dir * RAY_OFFSET_DIR and
     traces through the BVH (``Accelerator.BVH`` on a scene committed with
-    one) or the brute-force sweep. With ``t_max`` it is the ranged
+    one; the tables of the kind ``pallas_traverse.wide_mode`` picks, packed
+    once) or the brute-force sweep. With ``t_max`` it is the ranged
     occlusion query of NEE shadow rays: ``hit`` means occluded within
     t_max."""
     algo = "watertight" if opts.intersector == Intersector.WATERTIGHT else "mt"
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
-        tables = pallas_traverse.pack_tables(scene.bvh, *scene.geometry.corners())
+        tables = pallas_traverse.pack_tables_auto(scene.bvh, *scene.geometry.corners())
 
         def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
             o = o + d * intersect.RAY_OFFSET_DIR

@@ -1,0 +1,57 @@
+"""Port profile.py vs terra_tpu.profile: the same samples give the same
+statistics, report and nominal ray counts, exactly; the stage breakdown and
+the device trace run on the CPU."""
+import enum
+
+import numpy as np
+import pytest
+
+import terra_tpu as tt
+from terra_tpu import profile as jprof
+import terra_tpu_torch as ttt
+from terra_tpu_torch import profile as tprof
+
+
+def _samples():
+    return [float(x) for x in np.random.default_rng(4).lognormal(-3, 1, 50)]
+
+
+def test_stats_and_report_match_reference():
+    jp, tp = jprof.Profiler(), tprof.Profiler()
+    for p in (jp, tp):
+        for x in _samples():
+            p.add_sample("render", x)
+            p.add_sample("render_mrays", 1.0 / x)
+        p.stats("empty")
+    for name in ("render", "render_mrays"):
+        assert tp.stats(name).as_dict() == jp.stats(name).as_dict()
+    assert tp.report() == jp.report()
+    tp.clear()
+    assert tp.report() == ""
+
+
+@pytest.mark.parametrize("avg", [None, 2.5])
+@pytest.mark.parametrize("integrator", [tt.Integrator.SIMPLE, tt.Integrator.DIRECT,
+                                        tt.Integrator.DIRECT_MIS,
+                                        tt.Integrator.DEBUG_MIS_WEIGHTS])
+def test_ray_count_matches_reference(integrator, avg):
+    kw = dict(width=37, height=21, samples_per_pixel=6, bounces=3, integrator=integrator)
+    plain = {k: int(v) if isinstance(v, enum.Enum) else v for k, v in kw.items()}
+    assert tprof.ray_count(ttt.RenderOptions(**plain), avg) == \
+        jprof.ray_count(tt.RenderOptions(**kw), avg)
+
+
+def test_stage_breakdown_and_device_trace_on_cpu(tmp_path):
+    scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH)
+    opts = ttt.RenderOptions(width=8, height=8, samples_per_pixel=1, bounces=1,
+                             integrator=ttt.Integrator.DIRECT)
+    tprof.profiler.clear()
+    with tprof.device_trace(str(tmp_path)) as prof:
+        out = tprof.stage_breakdown(scene, ttt.scenes.cornell_camera(), opts, probe_lanes=256)
+    assert set(out) == {"raycast", "surface", "bounce"}
+    assert all(v > 0 for v in out.values())
+    assert tprof.profiler.stats("stage/bounce").n == 1
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert prof.key_averages()
+    with tprof.device_trace(None) as none:
+        assert none is None

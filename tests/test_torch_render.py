@@ -16,6 +16,7 @@ from tests.test_golden import _assert_twin_match
 from tests.test_torch_scene import SMALL_COURTYARD, flatten
 import terra_tpu_torch as ttt
 from terra_tpu_torch import interop
+from terra_tpu_torch.accel import pallas_traverse as tpt
 
 TOL, FLIP, FLIP_GGX, ENERGY = 2e-3, 8e-3, 1.2e-2, 5e-3
 
@@ -112,6 +113,27 @@ def test_textured_courtyard_matches_reference(courtyard_ref, source):
     _, to = _opts(**COURTYARD)
     img = _port_image(ts, ttt.scenes.courtyard_camera(), to, 3)
     assert np.isfinite(img).all() and img.std() > 1e-3
+    _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
+
+
+TABLE_KINDS = {
+    "binary": lambda bvh, *c: tpt.pack_tables(bvh, *c),
+    "f32": lambda bvh, *c: tpt.pack_tables_wide(bvh, *c, box_enc="f32"),
+    "bf16": lambda bvh, *c: tpt.pack_tables_wide(bvh, *c, box_enc="bf16"),
+    "paged4": lambda bvh, *c: tpt.pack_tables_paged(bvh, *c, resident_cap=4),
+}
+
+
+@pytest.mark.parametrize("kind", list(TABLE_KINDS))
+def test_courtyard_table_kinds_match_reference(courtyard_ref, kind, monkeypatch):
+    """The render walks whichever tables pack_tables_auto hands it; each
+    kind gives the reference's image within the twin budgets."""
+    _, ref = courtyard_ref
+    ts = ttt.scenes.courtyard(**SMALL_COURTYARD)
+    assert ts.bvh.num_wide > 4
+    monkeypatch.setattr(tpt, "pack_tables_auto", TABLE_KINDS[kind])
+    _, to = _opts(**COURTYARD)
+    img = _port_image(ts, ttt.scenes.courtyard_camera(), to, 3)
     _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
 
 

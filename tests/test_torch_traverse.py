@@ -29,8 +29,10 @@ def _scenes(tris):
 
 
 def _port(ts, o, d, t_max=None, **kw):
+    """The binary-tree walk (tests/test_torch_wide.py covers the BVH4 one)."""
     tm = None if t_max is None else torch.as_tensor(t_max)
-    return tpt.raycast(ts, torch.as_tensor(o), torch.as_tensor(d), t_max=tm, **kw)
+    tables = tpt.pack_tables(ts.bvh, *ts.geometry.corners())
+    return tpt.raycast(ts, torch.as_tensor(o), torch.as_tensor(d), t_max=tm, tables=tables, **kw)
 
 
 def _assert_match(got, ref):
