@@ -20,30 +20,50 @@ exits non-zero (there is no CPU fallback):
      against ``raycast4_plain`` on the card, against the binary kernel on
      the same tree, and against brute force on 2048 rays; kernel and plain
      times; the counted kernel against the uncounted one, with the
-     ``count_decode`` totals;
+     ``count_decode`` totals. Then the start-link gate on both courtyards
+     and every table kind (binary, f32, bf16, paged, paged S=1): 2^18 rays,
+     each started at a root of ``compact.build_frontier(bvh, 128)`` (wide
+     nodes, single leaves, or root 0) and aimed into its subtree's box,
+     without and with ``t_max`` seeds on half of them; the kernel against
+     the plain walk, 0 differing words, with both times;
   3. the production courtyard render (config 3b: 384x384, 8 spp, 2
-     bounces, DIRECT, persistent lanes of 8), with the table kind
-     ``pack_tables_auto`` chose and the launches of each kernel;
+     bounces, DIRECT, persistent lanes of 8; every raycast sorted by the
+     reference's parent-hit keys), with the table kind ``pack_tables_auto``
+     chose and the launches of each kernel; then the same render with the
+     sort switched off, which must give the same image bit for bit;
   3m. the 1M-triangle path: ``traverse_packed`` on bf16 tables over 2^20
-     camera rays, with its counters; the render of the 1M scene at 3b's
-     settings; the per-stage breakdown of ``profile.stage_breakdown``;
+     camera rays sorted by dir3 keys, as the bench sorts them (sort time,
+     sorted and unsorted traversal times, the sorted results scattered
+     back equal to the unsorted ones word for word), with its counters;
+     the render of the 1M scene at 3b's settings, sorted and unsorted, as
+     in phase 3; the per-stage breakdown of ``profile.stage_breakdown``;
+  3c. the compacted two-phase traversal (``scripts/compact_bench.py``'s
+     workload, through ``terra_tpu_torch.scripts.compact_bench``): the 1M
+     courtyard, 2^20 dir3-sorted camera rays, frontiers of M = 128 and 256
+     leaves, rows of 128 lanes; F, rounds, active rays per tail round,
+     BVH4 launches, and the compact seconds against the classic walk, held
+     to it (0 hit-mask mismatches, t within rtol 1e-4, >= 99% same
+     triangle);
   4. twins: a small courtyard rendered on CPU tensors (plain traversal)
      and on CUDA tensors (the kernels), once with each table kind (binary,
      f32, bf16, paged with 4 resident nodes), compared with the golden-test
      budgets.
 
-The main path is every run through the user's entry points: the renders of
-phases 3 and 3m, ``traverse_packed`` in phase 3m, and the CUDA half of each
-twin in phase 4 (the binary kernel is on it only there, since
-``wide_mode`` picks the BVH4 overlay for both courtyards). Each is run
-with the launch counts set to 0 and read after; launches that compare a
-kernel with its plain version are not counted. The last three lines are a
+The main path is every run through the user's entry points: the sorted
+renders of phases 3 and 3m, the sorted ``traverse_packed`` in phase 3m,
+the compact bench of phase 3c, and the CUDA half of each twin in phase 4
+(the binary kernel is on it only there, since ``wide_mode`` picks the
+BVH4 overlay for both courtyards). Each is run with the launch counts set
+to 0 and read after; launches that compare a kernel with its plain
+version, or a sorted run with an unsorted one, are not counted. The last
+three lines are a
 JSON object describing the kernels, the ``nvidia-smi`` line, and then
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import subprocess
@@ -264,9 +284,72 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
     return out, max_err
 
 
+def _start_gate(torch, pt, scene, label, dev, seed):
+    """Start-link gate on one scene (phase 2b): 2^18 rays, each started at
+    a frontier root (M = 128) or at root 0 and aimed at a point of that
+    subtree's box, walked by the kernel and the plain walk in every table
+    kind, without and with t_max seeds on half of the rays. Returns
+    {kind: {"max_abs_err", "ms", "plain_ms"}} of the seeded case."""
+    from terra_tpu_torch.accel import compact
+    from terra_tpu_torch.intersect import T_FAR
+
+    bvh = scene.bvh
+    corners = scene.geometry.corners()
+    t0 = time.perf_counter()
+    fr = compact.build_frontier(bvh, 128)
+    frontier_s = time.perf_counter() - t0
+    pool = torch.cat([fr.roots, torch.zeros(1, dtype=torch.int32, device=dev)])
+    boxes = torch.cat([torch.cat([fr.bmin, bvh.node_min[:1]]),
+                       torch.cat([fr.bmax, bvh.node_max[:1]])], dim=1)
+    n = 1 << 18
+    gen = np.random.default_rng(seed)
+    pick = torch.as_tensor(gen.integers(0, pool.shape[0], n), device=dev)
+    start = pool[pick].contiguous()
+    o, _, _ = _random_rays(torch, bvh, n, dev, seed + 1)
+    box = boxes[pick]
+    aim = box[:, :3] + torch.as_tensor(gen.random((n, 3), np.float32), device=dev) * \
+        (box[:, 3:] - box[:, :3]) - o
+    d = (aim / aim.norm(dim=1, keepdim=True)).contiguous()
+    seeded = torch.as_tensor(np.where(gen.random(n) < 0.5, gen.uniform(0.05, 30.0, n), T_FAR)
+                             .astype(np.float32), device=dev)
+    w = bvh.num_wide
+    print(f"phase 2b: {label} start links: F={fr.roots.shape[0]} frontier roots at M=128 "
+          f"({int((fr.roots >= w).sum())} single leaves) built in {frontier_s:.3f} s; "
+          f"{n} rays started at {int((start == 0).sum())} root / "
+          f"{int(((start > 0) & (start < w)).sum())} wide-node / {int((start >= w).sum())} "
+          f"leaf links", flush=True)
+    kinds = {"binary": pt.pack_tables(bvh, *corners),
+             "f32": pt.pack_tables_wide(bvh, *corners, box_enc="f32"),
+             "bf16": pt.pack_tables_wide(bvh, *corners, box_enc="bf16"),
+             "paged": pt.pack_tables_paged(bvh, *corners),
+             "paged_s1": pt.pack_tables_paged(bvh, *corners, resident_cap=1)}
+    out = {}
+    for kind, tab in kinds.items():
+        st = compact.binary_starts(bvh, start) if kind == "binary" else start
+        kfn = pt.raycast_cuda if kind == "binary" else pt.raycast4_cuda
+        pfn = pt.raycast_plain if kind == "binary" else pt.raycast4_plain
+        for case, tm in (("closest", None), ("t_max seeds", seeded)):
+            k = kfn(tab, o, d, tm, start=st)
+            p = pfn(tab, o, d, tm, start=st)
+            torch.cuda.synchronize()
+            err = _compare(f"{kind} start links {case} vs plain", k, p, tm)
+            words = int((k[0] != p[0]).sum()) + int((k[1] != p[1]).sum())
+            kernel_ms = _ms(torch, lambda: kfn(tab, o, d, tm, start=st), 20)
+            plain_ms = _ms(torch, lambda: pfn(tab, o, d, tm, start=st), 1, warm_up=False)
+            print(f"  {kind} start links {case}: kernel {kernel_ms:.3f} ms "
+                  f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.3f} ms", flush=True)
+            if words:
+                raise AssertionError(f"start-link kernel differs from its plain walk ({kind})")
+            if tm is not None:
+                out[kind] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+    return out
+
+
 def _render(torch, ttt, pt, scene, cam, opts, label):
     """One render of the main path after a small warm-up, with the launch
-    counts of both kernels. Returns (seconds, image, launches, launches4)."""
+    counts of both kernels; then the same render with the ray sort off,
+    which must give the same film bit for bit. Returns (seconds, launches,
+    launches4) of the sorted render."""
     ttt.render(scene, cam, opts.replace(width=32, height=32), seed=1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -291,6 +374,16 @@ def _render(torch, ttt, pt, scene, cam, opts, label):
           f"finite {finite}, written to {out}", flush=True)
     if launches + launches4 <= 0 or not finite or not mean > 0.0:
         raise AssertionError(f"{label} render failed its checks")
+    with mock.patch.object(pt, "raycast", functools.partial(pt.raycast, sort_rays=False)):
+        t0 = time.perf_counter()
+        unsorted = ttt.render(scene, cam, opts, seed=0)
+        torch.cuda.synchronize()
+        unsorted_s = time.perf_counter() - t0
+    same = torch.equal(film.acc, unsorted.acc) and torch.equal(film.samples, unsorted.samples)
+    print(f"  {label} render with the ray sort off: {unsorted_s:.3f} s (sorted: {seconds:.3f} s); "
+          f"films equal bit for bit {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: the sorted and unsorted renders differ")
     return seconds, launches, launches4
 
 
@@ -319,6 +412,8 @@ def main() -> None:
     import terra_tpu_torch as ttt
     from terra_tpu_torch import _build, intersect, native, profile
     from terra_tpu_torch.accel import pallas_traverse as pt
+    from terra_tpu_torch.accel import traverse
+    from terra_tpu_torch.scripts import compact_bench
 
     # 1. builds, all started together
     def timed(fn):
@@ -390,6 +485,14 @@ def main() -> None:
     for label, sc, seed in (("courtyard 242k", scene, 11), ("courtyard 1M", mega, 12)):
         gate4[label], err = _bvh4_gate(torch, pt, sc, label, cam, dev, seed)
         max_err4 = max(max_err4, err)
+    starts = {label: _start_gate(torch, pt, sc, label, dev, seed)
+              for label, sc, seed in (("courtyard 242k", scene, 21), ("courtyard 1M", mega, 22))}
+    for label, g in starts.items():
+        max_err = max(max_err, g["binary"]["max_abs_err"])
+        for kind, v in g.items():
+            max_err4 = max(max_err4, v["max_abs_err"])
+            if kind != "binary":
+                gate4[label][f"start_links/{kind}"] = v
 
     # 3. the production courtyard render (config 3b)
     main_launches = collections.Counter()
@@ -400,10 +503,13 @@ def main() -> None:
     _, l2, l4 = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
     main_launches.update(binary=l2, bvh4=l4)
 
-    # 3m. the 1M-triangle path (config 3m)
+    # 3m. the 1M-triangle path (config 3m): dir3-sorted rays, as the bench
     print(f"phase 3m: config 3m, wide_mode {pt.wide_mode(mega.bvh)}", flush=True)
     packed = pt.pack_tables_wide(mega.bvh, *mega.geometry.corners(), box_enc="bf16")
-    o_m, d_m = _camera_rays(torch, cam, 1024, dev)
+    o_u, d_u = _camera_rays(torch, cam, 1024, dev)
+    sort_ms = _ms(torch, lambda: traverse.sort_order(mega.bvh, o_u, d_u, "dir3"), 20)
+    order = traverse.sort_order(mega.bvh, o_u, d_u, "dir3")
+    o_m, d_m = o_u[order].contiguous(), d_u[order].contiguous()
     pt.launches = pt.launches4 = 0
     bt, bi = pt.traverse_packed(packed, o_m, d_m)
     torch.cuda.synchronize()
@@ -411,12 +517,25 @@ def main() -> None:
     tp_ms = _ms(torch, lambda: pt.traverse_packed(packed, o_m, d_m), 20)
     c = pt.count_decode(pt.traverse_packed(packed, o_m, d_m, count_steps=True)[2])
     hits = int((bt < intersect.T_FAR).sum())
-    print(f"  traverse_packed bf16, 2^20 camera rays (unsorted): {tp_ms:.3f} ms "
+    print(f"  dir3 sort of 2^20 camera rays (keys + stable argsort): {sort_ms:.3f} ms", flush=True)
+    print(f"  traverse_packed bf16, 2^20 camera rays (dir3-sorted): {tp_ms:.3f} ms "
           f"({o_m.shape[0] / tp_ms / 1e3:.1f} Mrays/s), hits {hits}; counters: iters "
           f"{int(c['iters'].sum())} pops {int(c['pops'].sum())} leaf tests "
           f"{int(c['leaves'].sum())} paged {int(c['paged'].sum())}", flush=True)
+    ut, ui = pt.traverse_packed(packed, o_u, d_u)
+    tu_ms = _ms(torch, lambda: pt.traverse_packed(packed, o_u, d_u), 20)
+    cu = pt.count_decode(pt.traverse_packed(packed, o_u, d_u, count_steps=True)[2])
+    back_t, back_i = torch.empty_like(bt), torch.empty_like(bi)
+    back_t[order], back_i[order] = bt, bi
+    same = torch.equal(back_t, ut) and torch.equal(back_i, ui)
+    print(f"  traverse_packed bf16, the same rays unsorted: {tu_ms:.3f} ms "
+          f"({o_u.shape[0] / tu_ms / 1e3:.1f} Mrays/s); counters: iters "
+          f"{int(cu['iters'].sum())} pops {int(cu['pops'].sum())}; sorted results scattered "
+          f"back equal the unsorted ones word for word {same}", flush=True)
     if hits <= 0 or not bool(torch.isfinite(bt[bt < intersect.T_FAR]).all()):
         raise AssertionError("traverse_packed on the 1M scene found no finite hits")
+    if not same:
+        raise AssertionError("sorting the rays changed traverse_packed's results")
     _, l2, l4 = _render(torch, ttt, pt, mega, cam, opts, "courtyard_1m")
     main_launches.update(binary=l2, bvh4=l4)
     if pt.wide_mode(mega.bvh) is not None and l4 <= 0:
@@ -424,6 +543,17 @@ def main() -> None:
     stages = profile.stage_breakdown(mega, cam, opts, probe_lanes=1 << 18)
     print("  stage breakdown (1M scene, 2^18 camera lanes, least of 3, CUDA events): "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()), flush=True)
+
+    # 3c. the compacted two-phase traversal (compact_bench's workload)
+    print("phase 3c: compact_bench --M 128 256 (1M courtyard, 2^20 dir3-sorted camera rays)",
+          flush=True)
+    pt.launches = pt.launches4 = 0
+    bench = compact_bench.main(["--M", "128", "256"])
+    main_launches.update(binary=pt.launches, bvh4=pt.launches4)
+    for m, row in bench["M"].items():
+        print(f"  M={m}: F={row['F']}, rounds {row['rounds']}, compact {row['compact_s']:.4f} s "
+              f"vs classic {bench['classic_s']:.4f} s (host clock, least of 3), hit-mask "
+              f"mismatches {row['hit_mismatch']}, same-tri {row['same_tri']:.6f}", flush=True)
 
     # 4. twins: cpu tensors (plain) vs cuda tensors (kernel), per table kind
     kw = dict(grid=40, columns=8)
@@ -457,7 +587,8 @@ def main() -> None:
          "source": "terra_tpu_torch/csrc/bvh_traverse.cu",
          "replaces": "terra_tpu/accel/pallas_traverse.py:81",
          "launches": main_launches["binary"], "max_abs_err": max_err,
-         "ms": k_ms, "plain_ms": p_ms},
+         "ms": k_ms, "plain_ms": p_ms,
+         "modes": {f"{label}/start_links": g["binary"] for label, g in starts.items()}},
         {"name": "bvh4_traverse", "route": "cuda",
          "source": "terra_tpu_torch/csrc/bvh4_traverse.cu",
          "replaces": "terra_tpu/accel/pallas_traverse.py:81",

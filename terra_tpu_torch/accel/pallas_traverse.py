@@ -19,7 +19,13 @@ one CUDA kernel for each tree shape:
     of table kind, priced against the port's :data:`NODE_TABLE_BUDGET`;
   * :func:`raycast` / :func:`traverse_packed` — dispatch on the table kind
     and on the tensors' device (CPU tensors take the plain version, CUDA
-    tensors the kernel; there is no fallback).
+    tensors the kernel; there is no fallback); :func:`raycast` sorts the
+    rays by the reference's coherence keys (``traverse.py``) first.
+
+Every walk takes optional per-ray start links (the reference's
+``start_links``, one per packet there): the node each ray's stack starts
+from instead of the root, popped without a box test as the root is. The
+compacted two-phase traversal (``compact.py``) starts rays in subtrees.
 
 Every plain version pops the same nodes in the same order as its kernel,
 with the same rounding, so the two agree bit for bit. Outputs carry no
@@ -37,17 +43,21 @@ import torch
 
 from .._build import build_shared
 from ..intersect import RayHit, T_FAR, leaf_test
+from .traverse import sort_order
 
 __all__ = ["Tables", "WideTables", "pack_tables", "pack_tables_wide", "pack_tables_paged",
            "pack_tables_auto", "paged_resident", "wide_mode", "use_wide", "raycast",
            "raycast_plain", "raycast_cuda", "raycast4_plain", "raycast4_cuda",
            "traverse_packed", "count_decode", "load_kernel", "load_kernel4", "launches",
-           "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET"]
+           "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "PACKET"]
 
 # Per-thread stack entries. The ordered binary DFS holds at most depth + 2
 # entries, the BVH4 walk 3 * wide_depth + 2; the wrappers refuse deeper
 # trees (the 1M-triangle courtyard at leaf 8 needs 23 and 38).
 STACK_CAP = 64
+# The reference's packet size; :func:`raycast` sorts only larger batches,
+# as the reference does.
+PACKET = 1024
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 KERNEL_SRC = os.path.join(_CSRC, "bvh_traverse.cu")
 KERNEL4_SRC = os.path.join(_CSRC, "bvh4_traverse.cu")
@@ -148,6 +158,29 @@ def _check_rays(o, d, t_max):
         raise ValueError(f"t_max must be float32 (N,), got {t_max.dtype} {tuple(t_max.shape)}")
 
 
+def _check_start(start, n: int, num_nodes: int):
+    """Start links: (n,) i32 node ids of the walk's id space (a node, or
+    the inner-node count + a leaf id), each in [0, num_nodes). The range
+    check reads the minimum and maximum back to the host."""
+    if start is None:
+        return
+    if start.dtype != torch.int32 or start.shape != (n,):
+        raise ValueError(f"start must be int32 ({n},), got {start.dtype} {tuple(start.shape)}")
+    if n:
+        lo, hi = (int(v) for v in torch.aminmax(start))
+        if lo < 0 or hi >= num_nodes:
+            raise ValueError(f"start links span [{lo}, {hi}]; the tables hold nodes "
+                             f"[0, {num_nodes})")
+
+
+def _seed_stack(n, start, dev):
+    """Per-ray stacks holding one entry: the root, or the start link."""
+    stack = torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev)
+    if start is not None:
+        stack[:, 0] = start
+    return stack, torch.ones((n,), dtype=torch.int64, device=dev)
+
+
 def _inv_dir(d):
     return torch.where(torch.abs(d) > 1e-12, 1.0 / d, 1e12)
 
@@ -198,11 +231,15 @@ def _leaf(tables, isect, rays, leaf, o, d, best_t, best_i, any_hit):
     return better
 
 
-def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt"):
+def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",
+                  start=None):
     """Plain PyTorch traversal with the kernel's rules and visit order:
-    every live ray pops one node per step. Returns (best_t, best_i)."""
+    every live ray pops one node per step. ``start``: optional (N,) i32
+    start links (an internal id, or ni + leaf id; a single-leaf tree
+    ignores them). Returns (best_t, best_i)."""
     _check_rays(o, d, t_max)
     _check_stack(tables)
+    _check_start(start, o.shape[0], tables.nodes.shape[0])
     isect = leaf_test(algo)
     n = o.shape[0]
     dev = o.device
@@ -215,8 +252,7 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
             zero = torch.zeros((n,), dtype=torch.int64, device=dev)
             _leaf(tables, isect, torch.arange(n, device=dev), zero, o, d, best_t, best_i, any_hit)
             return best_t, best_i
-        stack = torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev)
-        sp = torch.ones((n,), dtype=torch.int64, device=dev)
+        stack, sp = _seed_stack(n, start, dev)
         live = torch.arange(n, device=dev)
         while live.numel() > 0:
             top = sp[live] - 1
@@ -459,16 +495,23 @@ def _wide_f32(tables: WideTables):
             torch.cat([tables.links, tables.plinks]))
 
 
+def _wide_nodes(tables: WideTables) -> int:
+    """Size of the BVH4 walk's id space: wide nodes, then leaves."""
+    return tables.num_wide + tables.tri_id.shape[0] // tables.leaf_size
+
+
 def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
-                   algo: str = "mt", count: bool = False):
+                   algo: str = "mt", count: bool = False, start=None):
     """Plain PyTorch walk of the BVH4 overlay with the kernel's rules and
     visit order: every live ray pops one entry per step; a wide node tests
     its four child boxes, sorts the hits by entry t with the reference's
-    network and pushes them far-first; a leaf is tested at once. Returns
-    (best_t, best_i), and with ``count`` also the (N, 3) i32 per-ray
-    counts of pops, leaf tests and paged-node visits (nodes >= S)."""
+    network and pushes them far-first; a leaf is tested at once. ``start``:
+    optional (N,) i32 start links (a wide id, or num_wide + leaf id).
+    Returns (best_t, best_i), and with ``count`` also the (N, 3) i32
+    per-ray counts of pops, leaf tests and paged-node visits (nodes >= S)."""
     _check_rays(o, d, t_max)
     _check_stack4(tables)
+    _check_start(start, o.shape[0], _wide_nodes(tables))
     isect = leaf_test(algo)
     n = o.shape[0]
     dev = o.device
@@ -479,8 +522,7 @@ def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
         best_t = t_max.clone() if t_max is not None else torch.full((n,), T_FAR, device=dev)
         best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
         counts = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-        stack = torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev)
-        sp = torch.ones((n,), dtype=torch.int64, device=dev)
+        stack, sp = _seed_stack(n, start, dev)
         live = torch.arange(n, device=dev)
         while live.numel() > 0:
             top = sp[live] - 1
@@ -549,7 +591,7 @@ def load_kernel() -> ctypes.CDLL:
     lib = ctypes.CDLL(kernel_path())
     p = ctypes.c_void_p
     lib.terra_bvh_raycast.restype = ctypes.c_int
-    lib.terra_bvh_raycast.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int,
+    lib.terra_bvh_raycast.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p]
     return lib
 
@@ -565,8 +607,8 @@ def load_kernel4() -> ctypes.CDLL:
     lib = ctypes.CDLL(kernel4_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.terra_bvh4_raycast.restype = ctypes.c_int
-    lib.terra_bvh4_raycast.argtypes = [p, p, p, p, p, p, p, p, p, ctypes.c_int64, i, i, i, i,
-                                       i, i, p, p, p, p]
+    lib.terra_bvh4_raycast.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int64, i, i, i,
+                                       i, i, i, p, p, p, p]
     return lib
 
 
@@ -586,27 +628,34 @@ def _check_cuda(ins, name):
     return dev
 
 
-def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt"):
+def _ptr(x):
+    """Device pointer of an optional tensor (None when absent or empty)."""
+    return x.data_ptr() if x is not None and x.numel() else None
+
+
+def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",
+                 start=None):
     """Launch the CUDA kernel on the current stream. Every tensor must be
-    contiguous and on the same CUDA device. Returns (best_t, best_i)."""
+    contiguous and on the same CUDA device; ``start`` as for
+    :func:`raycast_plain`. Returns (best_t, best_i)."""
     global launches
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
         raise ValueError(f"unknown intersector {algo!r}")
     ins = [o, d, tables.nodes, tables.links, tables.tris, tables.tri_id]
-    if t_max is not None:
-        ins.append(t_max)
+    ins += [x for x in (t_max, start) if x is not None]
     dev = _check_cuda(ins, "raycast_cuda")
     _check_stack(tables)
+    _check_start(start, o.shape[0], tables.nodes.shape[0])
     lib = load_kernel()
     n = o.shape[0]
     best_t = torch.empty((n,), dtype=torch.float32, device=dev)
     best_i = torch.empty((n,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.terra_bvh_raycast(
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr() if t_max is not None else None,
-        tables.nodes.data_ptr(), tables.links.data_ptr(), tables.tris.data_ptr(),
-        tables.tri_id.data_ptr(), n, tables.ni, tables.leaf_size, _ALGOS[algo],
+        o.data_ptr(), d.data_ptr(), _ptr(t_max), _ptr(start), tables.nodes.data_ptr(),
+        tables.links.data_ptr(), tables.tris.data_ptr(), tables.tri_id.data_ptr(), n,
+        tables.ni, tables.leaf_size, _ALGOS[algo],
         int(any_hit), best_t.data_ptr(), best_i.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"bvh_traverse launch failed: cudaError {rc}")
@@ -615,10 +664,11 @@ def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: 
 
 
 def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
-                  algo: str = "mt", count: bool = False):
+                  algo: str = "mt", count: bool = False, start=None):
     """Launch the BVH4 CUDA kernel on the current stream. Every tensor must
-    be contiguous and on the same CUDA device. Returns (best_t, best_i),
-    and with ``count`` also the (N, 3) i32 per-ray counters."""
+    be contiguous and on the same CUDA device; ``start`` as for
+    :func:`raycast4_plain`. Returns (best_t, best_i), and with ``count``
+    also the (N, 3) i32 per-ray counters."""
     global launches4
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
@@ -626,10 +676,10 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     ins = [o, d, tables.nodes, tables.links, tables.tris, tables.tri_id]
     if tables.s_resident:
         ins += [tables.pboxes, tables.plinks]
-    if t_max is not None:
-        ins.append(t_max)
+    ins += [x for x in (t_max, start) if x is not None]
     dev = _check_cuda(ins, "raycast4_cuda")
     _check_stack4(tables)
+    _check_start(start, o.shape[0], _wide_nodes(tables))
     per_node = WIDE_BF16_NODE_BYTES if tables.box_enc == "bf16" else WIDE_F32_NODE_BYTES
     if tables.s_resident * per_node > MAX_BLOCK_SMEM:
         raise ValueError(f"{tables.s_resident} resident nodes need "
@@ -640,17 +690,13 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     best_t = torch.empty((n,), dtype=torch.float32, device=dev)
     best_i = torch.empty((n,), dtype=torch.int32, device=dev)
     counts = torch.empty((n, 3), dtype=torch.int32, device=dev) if count else None
-
-    def ptr(x):
-        return x.data_ptr() if x is not None and x.numel() else None
-
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.terra_bvh4_raycast(
-        o.data_ptr(), d.data_ptr(), ptr(t_max), tables.nodes.data_ptr(),
-        tables.links.data_ptr(), ptr(tables.pboxes), ptr(tables.plinks),
+        o.data_ptr(), d.data_ptr(), _ptr(t_max), _ptr(start), tables.nodes.data_ptr(),
+        tables.links.data_ptr(), _ptr(tables.pboxes), _ptr(tables.plinks),
         tables.tris.data_ptr(), tables.tri_id.data_ptr(), n, tables.num_wide,
         tables.s_resident, tables.leaf_size, int(tables.box_enc == "bf16"), _ALGOS[algo],
-        int(any_hit), best_t.data_ptr(), best_i.data_ptr(), ptr(counts), stream)
+        int(any_hit), best_t.data_ptr(), best_i.data_ptr(), _ptr(counts), stream)
     if rc != 0:
         raise RuntimeError(f"bvh4_traverse launch failed: cudaError {rc}")
     launches4 += 1
@@ -658,40 +704,61 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
 
 
 def traverse_packed(tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",
-                    count_steps: bool = False):
-    """Bench entry: walk pre-packed tables of any kind on (N, 3) rays, the
-    plain version for CPU tensors and the kernel for CUDA tensors. Returns
-    (best_t, best_i), and with ``count_steps`` (BVH4 tables only) also the
-    per-ray counters for :func:`count_decode`. The tables carry their own
-    kind, so the reference's ``bvh`` and ``mode`` arguments have no
-    counterpart."""
+                    count_steps: bool = False, start=None):
+    """Bench entry: walk pre-packed tables of any kind on (N, 3) rays in
+    the order given, the plain version for CPU tensors and the kernel for
+    CUDA tensors. ``start``: optional (N,) i32 start links in the tables'
+    id space. Returns (best_t, best_i), and with ``count_steps`` (BVH4
+    tables only) also the per-ray counters for :func:`count_decode`. The
+    tables carry their own kind, so the reference's ``bvh`` and ``mode``
+    arguments have no counterpart."""
     if o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no traversal for device {o.device}")
     cpu = o.device.type == "cpu"
     if isinstance(tables, WideTables):
         fn = raycast4_plain if cpu else raycast4_cuda
-        return fn(tables, o, d, t_max, any_hit, algo, count=count_steps)
+        return fn(tables, o, d, t_max, any_hit, algo, count=count_steps, start=start)
     if count_steps:
         raise ValueError("step counters are kept by the BVH4 walk only")
     fn = raycast_plain if cpu else raycast_cuda
-    return fn(tables, o, d, t_max, any_hit, algo)
+    return fn(tables, o, d, t_max, any_hit, algo, start=start)
+
+
+def _unsort(order, x):
+    """``x`` (in sorted order) scattered back through the permutation."""
+    out = torch.empty_like(x)
+    out[order] = x
+    return out
 
 
 def raycast(scene, o, d, t_max=None, any_hit: bool = False, sort_hint=None,
-            algo: str = "mt", tables=None) -> RayHit:
+            algo: str = "mt", tables=None, sort_rays: bool = True, sort_mode: str = "octant",
+            leaf_of_tri=None) -> RayHit:
     """Closest hit (or, with ``t_max``, occlusion within t_max) through the
     BVH: the tables ``tables`` (default: :func:`pack_tables_auto` of the
     scene) by their kind, CPU tensors by the plain version and CUDA tensors
-    by the kernel. ``sort_hint`` (the parent hit's triangle per ray) is
-    accepted for the reference's signature and unused until the kernels
-    sort rays."""
-    del sort_hint
+    by the kernel.
+
+    With ``sort_rays``, a batch of more than :data:`PACKET` rays is walked
+    in the order of the reference's coherence keys and its results are
+    scattered back, so no per-ray result changes: parent-hit keys
+    (``traverse.hinted_keys``) when both ``sort_hint`` (the parent hit's
+    triangle per ray, -1 for none) and ``leaf_of_tri``
+    (``traverse.leaf_of_tri_table``) are given, else ``sort_mode``'s keys
+    over the root box (``"octant"``, ``"dir2"``, ``"dir3"``, ``"treelet"``)."""
     if tables is None:
         tables = pack_tables_auto(scene.bvh, *scene.geometry.corners())
     o = o.detach().contiguous()
     d = d.detach().contiguous()
-    if t_max is not None:
-        t_max = t_max.detach().contiguous()
-    best_t, best_i = traverse_packed(tables, o, d, t_max, any_hit, algo)
+    tm = t_max = None if t_max is None else t_max.detach().contiguous()
+    order = None
+    if sort_rays and o.shape[0] > PACKET:
+        order = sort_order(scene.bvh, o, d, sort_mode, sort_hint, leaf_of_tri)
+        o, d = o[order], d[order]
+        if tm is not None:
+            tm = tm[order]
+    best_t, best_i = traverse_packed(tables, o, d, tm, any_hit, algo)
+    if order is not None:
+        best_t, best_i = _unsort(order, best_t), _unsort(order, best_i)
     hit = best_t < (T_FAR if t_max is None else t_max)
     return RayHit(t=best_t, tri=torch.where(hit, best_i, 0), hit=hit)

@@ -15,7 +15,14 @@
 //     memory per visit (pack_tables_paged, round_body_paged). On the TPU
 //     the resident part sat in SMEM and the rest was DMA'd per visit;
 //   * COUNT: per-ray pops, leaf tests and paged-node visits (count_steps;
-//     the wrapper's count_decode aggregates them per warp).
+//     the wrapper's count_decode aggregates them per warp);
+//   * start links (has_starts, one link per packet way on the TPU): with
+//     ``start`` given, ray i's stack starts from start[i], a wide id or
+//     num_wide + leaf id (the stack's own encoding), popped without a box
+//     test as the root is. The compacted two-phase traversal starts each
+//     ray in the subtree of its current (ray, subtree) pair. A runtime
+//     pointer test, not a template parameter, so the 64 instances stay 64;
+//     it runs once per ray.
 // For every ray it returns the smallest accepted leaf-test t and that
 // triangle's id with the rules of bvh_traverse.cu (slab test, ties,
 // t_max / any-hit occlusion, MT or watertight; traverse_common.cuh).
@@ -54,6 +61,7 @@ struct Args {
     const float* o;
     const float* d;
     const float* t_max;
+    const int32_t* start;  // (n,) start links, or null for the root
     const void* nodes;     // ENC 0: (R, 24) f32; ENC 1: (R, 12) u32
     const int4* links;     // (R, 4)
     const float4* pboxes;  // paged: (W - S, 24) f32
@@ -162,7 +170,7 @@ bvh4_traverse_kernel(const Args a) {
 
         int stack[TERRA_STACK_CAP];
         int sp = 0;
-        stack[sp++] = 0;
+        stack[sp++] = a.start ? __ldg(a.start + i) : 0;
         while (sp > 0) {
             const int node = stack[--sp];
             if (COUNT) ++pops;
@@ -266,7 +274,8 @@ int with_rays(const Args& a, int enc, int any_hit, cudaStream_t st) {
 
 }  // namespace
 
-// o, d: (n, 3) f32; t_max: (n,) f32 or null; nodes: (R, 24) f32 (enc 0) or
+// o, d: (n, 3) f32; t_max: (n,) f32 or null; start: (n,) i32 start links in
+// [0, num_wide + C) or null (the root); nodes: (R, 24) f32 (enc 0) or
 // (R, 12) u32 bf16 pairs (enc 1); links: (R, 4) i32 (wide id, or
 // num_wide + leaf id); pboxes / plinks: (num_wide - s_res, 24) f32 and
 // (num_wide - s_res, 4) i32 when s_res > 0 (paged: R == s_res), else
@@ -277,13 +286,14 @@ int with_rays(const Args& a, int enc, int any_hit, cudaStream_t st) {
 // TERRA_STACK_CAP and s_res resident nodes must fit a block's shared
 // memory (both checked by the wrapper). Returns 0 or a cudaError_t code.
 extern "C" int terra_bvh4_raycast(const float* o, const float* d, const float* t_max,
-                                  const void* nodes, const int32_t* links, const float* pboxes,
+                                  const int32_t* start, const void* nodes,
+                                  const int32_t* links, const float* pboxes,
                                   const int32_t* plinks, const float* tris,
                                   const int32_t* tri_id, int64_t n, int num_wide, int s_res,
                                   int leaf_size, int enc, int algo, int any_hit, float* out_t,
                                   int32_t* out_i, int32_t* counts, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
-    const Args a{o, d, t_max, nodes, reinterpret_cast<const int4*>(links),
+    const Args a{o, d, t_max, start, nodes, reinterpret_cast<const int4*>(links),
                  reinterpret_cast<const float4*>(pboxes), reinterpret_cast<const int4*>(plinks),
                  tris, tri_id, n, num_wide, s_res, leaf_size, out_t, out_i, counts};
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -11,7 +11,12 @@
 //     only with t strictly below the running best;
 //   * occlusion: best_t starts at the ray's t_max (HAS_TMAX), and ANY_HIT
 //     stops the ray at its first accepted hit with best_t = 0 (the TPU
-//     kernel sets best_t to 0 there; no later leaf can beat it).
+//     kernel sets best_t to 0 there; no later leaf can beat it);
+//   * start links (the TPU kernel's has_starts mode, one link per packet
+//     there): with ``start`` given, ray i's stack starts from start[i] (an
+//     internal id, or ni + leaf id) instead of the root, popped without a
+//     box test as the root is. A runtime pointer test, not a template
+//     parameter: the branch is taken once per ray.
 // The leaf test is Moller-Trumbore or the Wald2013-style watertight test
 // (ALGO), written with the operation order of terra_tpu_torch/intersect.py.
 //
@@ -61,8 +66,9 @@ __device__ __forceinline__ float entry(const float4* __restrict__ nodes, int c,
 template <int ALGO, bool HAS_TMAX, bool ANY_HIT>
 __global__ void __launch_bounds__(BLOCK)
 bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ t_max, const float4* __restrict__ nodes,
-                    const int2* __restrict__ links, const float* __restrict__ tris,
+                    const float* __restrict__ t_max, const int32_t* __restrict__ start,
+                    const float4* __restrict__ nodes, const int2* __restrict__ links,
+                    const float* __restrict__ tris,
                     const int32_t* __restrict__ tri_id, int64_t n, int ni, int leaf_size,
                     float* __restrict__ out_t, int32_t* __restrict__ out_i) {
     const int64_t i = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
@@ -79,7 +85,7 @@ bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
     } else {
         int stack[TERRA_STACK_CAP];
         int sp = 0;
-        stack[sp++] = 0;
+        stack[sp++] = start ? __ldg(start + i) : 0;
         while (sp > 0) {
             const int node = stack[--sp];
             if (node >= ni) {
@@ -103,52 +109,54 @@ bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 template <int ALGO, bool HAS_TMAX, bool ANY_HIT>
-void launch(const float* o, const float* d, const float* t_max, const float* nodes,
-            const int32_t* links, const float* tris, const int32_t* tri_id, int64_t n,
+void launch(const float* o, const float* d, const float* t_max, const int32_t* start,
+            const float* nodes, const int32_t* links, const float* tris, const int32_t* tri_id, int64_t n,
             int ni, int leaf_size, float* out_t, int32_t* out_i, cudaStream_t stream) {
     const unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
     bvh_traverse_kernel<ALGO, HAS_TMAX, ANY_HIT><<<grid, BLOCK, 0, stream>>>(
-        o, d, t_max, reinterpret_cast<const float4*>(nodes),
+        o, d, t_max, start, reinterpret_cast<const float4*>(nodes),
         reinterpret_cast<const int2*>(links), tris, tri_id, n, ni, leaf_size, out_t, out_i);
 }
 
 template <int ALGO>
-void launch_algo(const float* o, const float* d, const float* t_max, const float* nodes,
-                 const int32_t* links, const float* tris, const int32_t* tri_id, int64_t n,
+void launch_algo(const float* o, const float* d, const float* t_max, const int32_t* start,
+                 const float* nodes, const int32_t* links, const float* tris, const int32_t* tri_id, int64_t n,
                  int ni, int leaf_size, int any_hit, float* out_t, int32_t* out_i,
                  cudaStream_t stream) {
     if (t_max != nullptr) {
         if (any_hit)
-            launch<ALGO, true, true>(o, d, t_max, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
+            launch<ALGO, true, true>(o, d, t_max, start, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
         else
-            launch<ALGO, true, false>(o, d, t_max, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
+            launch<ALGO, true, false>(o, d, t_max, start, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
     } else {
         if (any_hit)
-            launch<ALGO, false, true>(o, d, t_max, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
+            launch<ALGO, false, true>(o, d, t_max, start, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
         else
-            launch<ALGO, false, false>(o, d, t_max, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
+            launch<ALGO, false, false>(o, d, t_max, start, nodes, links, tris, tri_id, n, ni, leaf_size, out_t, out_i, stream);
     }
 }
 
 }  // namespace
 
-// o, d: (n, 3) f32; t_max: (n,) f32 or null; nodes: (ni + C, 8) f32 boxes
-// [minx miny minz maxx maxy maxz 0 0]; links: (max(ni, 1), 2) i32 children;
+// o, d: (n, 3) f32; t_max: (n,) f32 or null; start: (n,) i32 start links in
+// [0, ni + C) or null (the root; a single-leaf tree ignores them); nodes:
+// (ni + C, 8) f32 boxes [minx miny minz maxx maxy maxz 0 0]; links:
+// (max(ni, 1), 2) i32 children;
 // tris: (C * leaf_size, 9) f32 corners; tri_id: (C * leaf_size,) i32;
 // algo 0 = Moller-Trumbore, 1 = watertight. Outputs best_t (n,) f32 and
 // best_i (n,) i32. The tree depth + 2 must not exceed TERRA_STACK_CAP
 // (checked by the wrapper). Returns cudaGetLastError() after the launch.
 extern "C" int terra_bvh_raycast(const float* o, const float* d, const float* t_max,
-                                 const float* nodes, const int32_t* links,
+                                 const int32_t* start, const float* nodes, const int32_t* links,
                                  const float* tris, const int32_t* tri_id, int64_t n,
                                  int ni, int leaf_size, int algo, int any_hit,
                                  float* out_t, int32_t* out_i, void* stream) {
     if (n > 0) {
         cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
         if (algo == 0)
-            launch_algo<0>(o, d, t_max, nodes, links, tris, tri_id, n, ni, leaf_size, any_hit, out_t, out_i, st);
+            launch_algo<0>(o, d, t_max, start, nodes, links, tris, tri_id, n, ni, leaf_size, any_hit, out_t, out_i, st);
         else
-            launch_algo<1>(o, d, t_max, nodes, links, tris, tri_id, n, ni, leaf_size, any_hit, out_t, out_i, st);
+            launch_algo<1>(o, d, t_max, start, nodes, links, tris, tri_id, n, ni, leaf_size, any_hit, out_t, out_i, st);
     }
     return (int)cudaGetLastError();
 }

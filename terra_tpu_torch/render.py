@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import bsdf, camera as camera_mod, intersect
-from .accel import pallas_traverse
+from .accel import pallas_traverse, traverse
 from .film import Film
 from .integrators import make_integrator
 from .ops import math3, rng as rng_mod
@@ -42,15 +42,19 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
     one; the tables of the kind ``pallas_traverse.wide_mode`` picks, packed
     once) or the brute-force sweep. With ``t_max`` it is the ranged
     occlusion query of NEE shadow rays: ``hit`` means occluded within
-    t_max."""
+    t_max. The BVH path sorts each batch by parent-hit keys (``sort_hint``,
+    the previous hit's triangle per lane, through the leaf-of-triangle
+    table built once here), or by octant keys when no hint is given."""
     algo = "watertight" if opts.intersector == Intersector.WATERTIGHT else "mt"
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
         tables = pallas_traverse.pack_tables_auto(scene.bvh, *scene.geometry.corners())
+        leaf_of = traverse.leaf_of_tri_table(scene.bvh)
 
         def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
             o = o + d * intersect.RAY_OFFSET_DIR
             return pallas_traverse.raycast(scene, o, d, t_max=t_max, any_hit=any_hit,
-                                           sort_hint=sort_hint, algo=algo, tables=tables)
+                                           sort_hint=sort_hint, algo=algo, tables=tables,
+                                           leaf_of_tri=leaf_of)
 
         return raycast
 
