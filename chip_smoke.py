@@ -7,8 +7,11 @@ Phases, one printed line or more each; any failure raises and the script
 exits non-zero (there is no CPU fallback):
 
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  1. build both CUDA traversal kernels (nvcc, sm_90a) and the native SAH
-     builder (g++) from the sources in this checkout, all at once, timed;
+  1. build both CUDA traversal kernels and the pattern-probe kernels (nvcc,
+     sm_90a) and the native SAH builder (g++) from the sources in this
+     checkout, all at once, timed; the ptxas summary of each library, and
+     the SASS of every probe kernel (``cuobjdump -sass``) checked for the
+     TMA bulk copy (UBLKCP) and the mbarrier wait (SYNCS.PHASECHK);
   2. binary-kernel gate on the 241,764-triangle courtyard: the kernel
      against its plain PyTorch version on the card (2^20 camera rays, 2^18
      uniform random rays, 2^18 occlusion rays with t_max, plus
@@ -37,6 +40,11 @@ exits non-zero (there is no CPU fallback):
      back equal to the unsorted ones word for word), with its counters;
      the render of the 1M scene at 3b's settings, sorted and unsorted, as
      in phase 3; the per-stage breakdown of ``profile.stage_breakdown``;
+  3g. the full-material render (config 3g): the Cornell box with Phong
+     walls and a glass block at bench config 2's width (512x512, 4 bounces,
+     DIRECT_MIS, persistent lanes), spp cut from 256 to 16; then the 242k
+     courtyard at 3b's settings under DIRECT_MIS with env_on_miss and env
+     NEE, lit by a constant sky (0.5, 0.6, 0.8);
   3c. the compacted two-phase traversal (``scripts/compact_bench.py``'s
      workload, through ``terra_tpu_torch.scripts.compact_bench``): the 1M
      courtyard, 2^20 dir3-sorted camera rays, frontiers of M = 128 and 256
@@ -47,25 +55,36 @@ exits non-zero (there is no CPU fallback):
   4. twins: a small courtyard rendered on CPU tensors (plain traversal)
      and on CUDA tensors (the kernels), once with each table kind (binary,
      f32, bf16, paged with 4 resident nodes), compared with the golden-test
-     budgets.
+     budgets; then CPU-vs-CUDA twins of the glass, mirror, Phong and Disney
+     Cornell boxes, of env NEE on a textured sky, and of the four debug
+     integrators, under the reference tests' budgets;
+  5. the pattern probes: each of the eleven bodies through its
+     ``terra_tpu_torch.scripts`` entry point on the card (it must print OK),
+     held word for word against its plain PyTorch version on the same input;
+     kernel and plain times (CUDA events, mean of 200 runs after a warm-up).
 
 The main path is every run through the user's entry points: the sorted
-renders of phases 3 and 3m, the sorted ``traverse_packed`` in phase 3m,
-the compact bench of phase 3c, and the CUDA half of each twin in phase 4
+renders of phases 3, 3m and 3g, the sorted ``traverse_packed`` in phase
+3m, the compact bench of phase 3c, the CUDA half of each twin in phase 4
 (the binary kernel is on it only there, since ``wide_mode`` picks the
-BVH4 overlay for both courtyards). Each is run with the launch counts set
-to 0 and read after; launches that compare a kernel with its plain
-version, or a sorted run with an unsorted one, are not counted. The last
-three lines are a
-JSON object describing the kernels, the ``nvidia-smi`` line, and then
-``{"ok": true, "device": {...}}``.
+BVH4 overlay for both courtyards) and the probe entry points of phase 5.
+Each is run with the launch counts set to 0 and read after; launches that
+compare a kernel with its plain version, time it, or compare a sorted run
+with an unsorted one are not counted. The last three lines are a JSON
+object describing the kernels (with each one's least time on the card,
+``bound_ms``: the larger of the bytes its run needs over 3.35 TB/s and its
+operations over the 67 TFLOP/s f32 peak), the ``nvidia-smi`` line, and
+then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import tempfile
 import time
@@ -75,6 +94,18 @@ from unittest import mock
 import numpy as np
 
 N_CHECK = 2048  # rays held against brute force
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+RAY_BYTES = 32             # o, d in (24 B), t, tri out (8 B)
+# Operations of one ray-box slab test and one Moller-Trumbore triangle
+# test, counted from the kernels' code (subtractions, products, min/max,
+# compares); bytes of one leaf slot (9 f32 corners + an i32 id).
+BOX_OPS, TRI_OPS, TRI_SLOT_BYTES = 22, 45, 40
+# Twin budgets (tol, flip, energy) of tests/test_golden.py::_assert_twin_match
+# as the reference tests set them.
+GOLDEN = (2e-3, 8e-3, 5e-3)
+DELTA = (2e-3, 1.5e-2, 6e-3)   # test_glass.py:181, test_delta_lighting.py:144
+PHONG = (2e-3, 1.2e-2, 5e-3)   # test_golden.py test_golden_phong
 
 
 def _smi() -> str:
@@ -133,6 +164,58 @@ def _twin_match(img, ref, tol=2e-3, flip_budget=8e-3, energy_tol=5e-3):
           f"max rel {rel.max():.3e}", flush=True)
     if max(fracs.values()) > flip_budget or energy >= energy_tol:
         raise AssertionError("cpu and cuda renders differ beyond the twin budgets")
+
+
+def _bound(nbytes: float, ops: float) -> tuple:
+    """(least milliseconds on the card, what bounds it)."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def _walk_bound(torch, walk, n_inner, n_ids, n_rays, node_bytes, box_tests, leaf_size):
+    """Least time of a BVH walk on these rays: ``walk(touched)`` runs the
+    plain walk (which pops what the kernel pops) with per-ray counters and
+    marks every popped id (``n_ids`` of them, inner nodes first). Bytes:
+    the rays in and out, and each node and leaf the rays touch read once (an inner node's ``node_bytes``, a leaf's
+    ``leaf_size`` triangle slots); operations: every pop's ``box_tests``
+    slab tests and every leaf test's triangle tests. Also returns the bytes
+    the pops would move if nothing were reused (the counters times the
+    row sizes) and the counter totals."""
+    touched = torch.zeros(n_ids, dtype=torch.bool, device="cuda")
+    counts = walk(touched)[2].sum(dim=0)
+    pops, leaves = int(counts[0]), int(counts[1])
+    inner_t, leaf_t = int(touched[:n_inner].sum()), int(touched[n_inner:].sum())
+    slot = leaf_size * TRI_SLOT_BYTES
+    bound = _bound(n_rays * RAY_BYTES + inner_t * node_bytes + leaf_t * slot,
+                   (pops - leaves) * box_tests * BOX_OPS + leaves * leaf_size * TRI_OPS)
+    no_reuse = n_rays * RAY_BYTES + (pops - leaves) * node_bytes + leaves * slot
+    print(f"  counters: pops {pops} leaf tests {leaves}; touched {inner_t} inner nodes and "
+          f"{leaf_t} leaves; bound {bound[0]:.4f} ms ({bound[1]}); the pops' bytes without "
+          f"reuse {no_reuse / 2**20:.1f} MiB ({no_reuse / HBM_BYTES_PER_S * 1e3:.4f} ms)",
+          flush=True)
+    return bound
+
+
+def _sass_check(probes, path):
+    """Every probe kernel ports a make_async_copy, so its SASS must hold the
+    bulk copy (UBLKCP on sm_90a) and the mbarrier phase wait (SYNCS). The
+    instruction names found are printed and returned."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    blocks = {b.split()[0]: b for b in re.split(r"\n\s*Function : ", sass)[1:]}
+    found = {}
+    for name, (fn, _) in probes.KERNELS.items():
+        block = blocks.get(f"{fn}_kernel", "")
+        copy = sorted(set(re.findall(r"\bUBLKCP[.\w]*", block)))
+        wait = sorted(set(re.findall(r"\bSYNCS\.[.\w]*", block)))
+        votes = sorted(set(re.findall(r"\b(?:VOTE|SHFL)[.\w]*", block)))
+        print(f"  SASS {fn}_kernel: bulk copy {copy}, mbarrier {wait}, warp ops {votes}",
+              flush=True)
+        if not copy or not any(w.startswith("SYNCS.PHASECHK") for w in wait):
+            raise AssertionError(f"{fn}_kernel lacks the bulk copy or the mbarrier wait in SASS")
+        found[name] = copy + wait
+    return found
 
 
 def _ptxas_summary(log: str):
@@ -277,6 +360,14 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
                   f"{int(c['pops'].sum())}, leaves {int(c['leaves'].sum())}, paged "
                   f"{int(c['paged'].sum())}; mean pops/iters per warp {util:.2f} of 32",
                   flush=True)
+            if name.startswith("camera"):  # the least time of this walk
+                node_bytes = (pt.WIDE_BF16_NODE_BYTES if tab.box_enc == "bf16"
+                              else pt.WIDE_F32_NODE_BYTES)
+                b = _walk_bound(torch, lambda touched: pt.raycast4_plain(
+                    tab, o, d, tm, any_hit, algo, count=True, touched=touched),
+                    tab.num_wide, tab.num_wide + tab.tri_id.shape[0] // tab.leaf_size,
+                    o.shape[0], node_bytes, 4, tab.leaf_size)
+                out[mode].update(bound_ms=b[0], bound_by=b[1])
             pages = 0 < tab.s_resident < tab.num_wide
             if not same or bool(c["paged"].sum() > 0) != pages:
                 raise AssertionError(f"counted {mode} run differs from the uncounted one or "
@@ -345,11 +436,11 @@ def _start_gate(torch, pt, scene, label, dev, seed):
     return out
 
 
-def _render(torch, ttt, pt, scene, cam, opts, label):
+def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
     """One render of the main path after a small warm-up, with the launch
-    counts of both kernels; then the same render with the ray sort off,
-    which must give the same film bit for bit. Returns (seconds, launches,
-    launches4) of the sorted render."""
+    counts of both kernels; then (``check_unsorted``) the same render with
+    the ray sort off, which must give the same film bit for bit. Returns
+    (seconds, launches, launches4) of the sorted render."""
     ttt.render(scene, cam, opts.replace(width=32, height=32), seed=1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -366,7 +457,8 @@ def _render(torch, ttt, pt, scene, cam, opts, label):
     out = os.path.join(tempfile.gettempdir(), f"terra_tpu_torch_{label}.npy")
     np.save(out, img.cpu().numpy())
     print(f"  {label} render {opts.width}x{opts.height}x{opts.samples_per_pixel}spp bounces "
-          f"{opts.bounces} DIRECT lanes of {opts.samples_per_lane}: table kind "
+          f"{opts.bounces} {opts.integrator.name} lanes of {opts.samples_per_lane}"
+          f"{' env_on_miss env_nee' if opts.env_nee else ''}: table kind "
           f"{pt.wide_mode(scene.bvh) or 'binary'}, {seconds:.3f} s, nominal "
           f"{nominal / seconds / 1e6:.2f} Mrays/s ({nominal} rays = pixels*spp*(bounces+1)*2), "
           f"launches binary {launches} bvh4 {launches4}, peak memory "
@@ -374,6 +466,8 @@ def _render(torch, ttt, pt, scene, cam, opts, label):
           f"finite {finite}, written to {out}", flush=True)
     if launches + launches4 <= 0 or not finite or not mean > 0.0:
         raise AssertionError(f"{label} render failed its checks")
+    if not check_unsorted:
+        return seconds, launches, launches4
     with mock.patch.object(pt, "raycast", functools.partial(pt.raycast, sort_rays=False)):
         t0 = time.perf_counter()
         unsorted = ttt.render(scene, cam, opts, seed=0)
@@ -385,6 +479,137 @@ def _render(torch, ttt, pt, scene, cam, opts, label):
     if not same:
         raise AssertionError(f"{label}: the sorted and unsorted renders differ")
     return seconds, launches, launches4
+
+
+def _disney(torch, scene):
+    """The Disney block with every principled parameter set, as
+    tests/test_torch_materials.py sets it."""
+    a = scene.materials.attrs.clone()
+    a[4, :6] = torch.tensor([(0.8, 0.5, 0.3), (0.5, 0.3, 0.0), (0.4, 0.5, 0.0), (0.6, 0.7, 0.0),
+                             (0.3, 0.45, 0.0), (0.5, 0.2, 0.0)], device=a.device)
+    return dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, attrs=a))
+
+
+def _sky_floor(torch, ttt, device):
+    """tests/test_envmap.py's open floor (a diffuse quad) under a lat-long
+    sky texture with a bright patch, committed with a BVH."""
+    from terra_tpu_torch.scene import MaterialTable, TextureAtlas
+    from terra_tpu_torch.scenes import make_geometry
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device)
+
+    c = [(-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1)]
+    geom = make_geometry([(c[0], c[2], c[1]), (c[0], c[3], c[2])], [0, 0], device=device)
+    attrs = np.zeros((1, 8, 3), np.float32)
+    attrs[0, 0] = 0.7
+    mats = MaterialTable(bsdf_type=t(np.zeros(1, np.int32)), attrs=t(attrs),
+                         attr_tex=t(np.full((1, 8), -1, np.int32)),
+                         emissive=t(np.zeros((1, 3), np.float32)),
+                         emissive_tex=t(np.full(1, -1, np.int32)),
+                         ior=t(np.full(1, 1.5, np.float32)))
+    sky = np.full((32, 64, 3), 0.05, np.float32)
+    sky[8:12, 20:28] = 50.0
+    atlas = TextureAtlas(data=t(sky[None]), size=t(np.asarray([[32, 64]], np.int32)),
+                         filter=t(np.zeros(1, np.int32)), address=t(np.zeros(1, np.int32)))
+    return ttt.commit(geom, mats, textures=atlas, env_tex=0, accelerator=ttt.Accelerator.BVH)
+
+
+def _material_twins(torch, ttt, pt):
+    """Phase 4's material, environment and debug twins: each scene rendered
+    on CPU tensors and on CUDA tensors, compared under the reference tests'
+    budgets. Returns the launches of the CUDA halves."""
+    I, B = ttt.Integrator, ttt.BSDFType
+    base = dict(width=32, height=32, samples_per_pixel=4, subpixel_jitter=0.5)
+
+    def box(**kw):
+        return lambda dev: ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH, device=dev,
+                                                  **kw)
+
+    def box_cam(dev):
+        return ttt.scenes.cornell_camera(device=dev)
+
+    def floor_cam(dev):
+        return ttt.Camera.make(position=(0, 0.5, 1.2), direction=(0, -0.4, -1), up=(0, 1, 0),
+                               fov_deg=45.0, device=dev)
+
+    cases = [("glass", box(block_bsdf=B.GLASS), box_cam, dict(bounces=4, integrator=I.DIRECT),
+              DELTA),
+             ("mirror", box(block_bsdf=B.MIRROR), box_cam,
+              dict(bounces=3, integrator=I.DIRECT_MIS), DELTA),
+             ("phong", box(wall_bsdf=B.PHONG), box_cam, dict(bounces=2, integrator=I.DIRECT),
+              PHONG),
+             ("disney", lambda dev: _disney(torch, box(block_bsdf=B.DISNEY)(dev)), box_cam,
+              dict(bounces=3, integrator=I.DIRECT_MIS), GOLDEN),
+             ("env NEE, textured sky", lambda dev: _sky_floor(torch, ttt, dev), floor_cam,
+              dict(bounces=2, integrator=I.DIRECT_MIS, env_on_miss=True, env_nee=True), GOLDEN)]
+    cases += [(f"debug {i.name}", box(), box_cam, dict(bounces=2, integrator=i), GOLDEN)
+              for i in (I.DEBUG_MONO, I.DEBUG_DEPTH, I.DEBUG_NORMALS, I.DEBUG_MIS_WEIGHTS)]
+    launches = collections.Counter()
+    for label, make_scene, make_cam, kw, budget in cases:
+        opts = ttt.RenderOptions(**base, **kw)
+        imgs = []
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            pt.launches = pt.launches4 = 0
+            f = ttt.render(make_scene(device), make_cam(device), opts, seed=3)
+            imgs.append(f.mean().cpu().numpy())
+            if device == "cuda":
+                launches.update(binary=pt.launches, bvh4=pt.launches4)
+            print(f"phase 4: {label} twin 32x32x4spp {opts.integrator.name} on {device}: "
+                  f"{time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}, launches "
+                  f"binary {pt.launches} bvh4 {pt.launches4}", flush=True)
+        if not np.isfinite(imgs[1]).all() or not imgs[1].max() > 0.0:
+            raise AssertionError(f"{label} twin rendered no finite light")
+        _twin_match(imgs[1], imgs[0], *budget)
+    return launches
+
+
+PROBE_ENTRIES = {  # body -> (module, function) of its terra_tpu_torch.scripts entry point
+    "smem_dma/hbm_to_smem": ("smem_dma_probe", "probe_hbm_to_smem"),
+    "smem_dma/hbm_to_smem_i32_loop": ("smem_dma_probe", "probe_hbm_to_smem_i32_loop"),
+    "smem_dma/smem_dma_in_while": ("smem_dma_probe", "probe_smem_dma_in_while"),
+    **{f"rowmask/probe{p}": ("rowmask_patterns_probe", f"probe{p}") for p in (1, 2, 3, 4)},
+    **{f"paged/probe{p}": ("paged_patterns_probe", f"probe{p}") for p in (1, 2, 3, 4)},
+}
+
+
+def _probe_phase(torch):
+    """Phase 5. Returns {kernel: {"launches", "max_abs_err", "ms", "plain_ms",
+    "bound_ms", "bound_by", "replaces", "bodies"}}; a kernel serving
+    several bodies reports its slowest body's times."""
+    import importlib
+
+    from terra_tpu_torch import probes
+
+    out = {}
+    for name, (module, fn) in PROBE_ENTRIES.items():
+        body = probes.BODIES[name]
+        entry = getattr(importlib.import_module(f"terra_tpu_torch.scripts.{module}"), fn)
+        probes.launches = 0
+        got, ok = entry("cuda")  # the user's entry point; prints the reference's line
+        torch.cuda.synchronize()
+        n_launch = probes.launches
+        x = probes.make_input(name, "cuda")
+        plain = probes.run_plain(name, x)
+        words = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
+        err = float((got.double() - plain.double()).abs().max())
+        kernel_ms = _ms(torch, lambda: probes.run(name, x), 200)
+        plain_ms = _ms(torch, lambda: probes.run_plain(name, x), 200)
+        bound_ms, bound_by = _bound(body.staged_rows * probes.W * 4 + got.numel() * 4, body.ops)
+        print(f"phase 5: {name} ({body.kernel}): OK {ok}, launches {n_launch}, words differing "
+              f"from the plain version {words}; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms * 1e6:.2f} ns ({bound_by})", flush=True)
+        if not ok or words or n_launch != 1:
+            raise AssertionError(f"probe {name} failed on the card")
+        k = out.setdefault(body.kernel, {"launches": 0, "max_abs_err": 0.0, "ms": 0.0,
+                                         "replaces": body.replaces, "bodies": {}})
+        k["launches"] += n_launch
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["bodies"][name] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        if kernel_ms >= k["ms"]:
+            k.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 TWIN_TABLES = {
@@ -410,7 +635,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import terra_tpu_torch as ttt
-    from terra_tpu_torch import _build, intersect, native, profile
+    from terra_tpu_torch import _build, intersect, native, probes, profile
     from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.accel import traverse
     from terra_tpu_torch.scripts import compact_bench
@@ -421,17 +646,20 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in
                 (("bvh_traverse", pt.load_kernel), ("bvh4_traverse", pt.load_kernel4),
-                 ("terra_native", native.load))}
+                 ("pattern_probes", probes.load_kernel), ("terra_native", native.load))}
         build_s = {name: f.result() for name, f in futs.items()}
     print(f"phase 1: built bvh_traverse (nvcc sm_90a) in {build_s['bvh_traverse']:.2f} s, "
           f"bvh4_traverse (nvcc sm_90a) in {build_s['bvh4_traverse']:.2f} s, "
+          f"pattern_probes (nvcc sm_90a) in {build_s['pattern_probes']:.2f} s, "
           f"terra_native (g++) in {build_s['terra_native']:.2f} s, in parallel", flush=True)
-    for name, path in (("bvh_traverse", pt.kernel_path()), ("bvh4_traverse", pt.kernel4_path())):
+    for name, path in (("bvh_traverse", pt.kernel_path()), ("bvh4_traverse", pt.kernel4_path()),
+                       ("pattern_probes", probes.kernel_path())):
         print(f"  {name}:", flush=True)
         _ptxas_summary(_build.build_log(path))
+    _sass_check(probes, probes.kernel_path())
 
     # 2. binary-kernel gate on the full courtyard
     dev = torch.device("cuda")
@@ -460,6 +688,13 @@ def main() -> None:
         times[name] = (kernel_ms, plain_ms)
         print(f"  {name}: kernel {kernel_ms:.3f} ms ({o.shape[0] / kernel_ms / 1e3:.1f} Mrays/s), "
               f"plain {plain_ms:.3f} ms ({o.shape[0] / plain_ms / 1e3:.2f} Mrays/s)", flush=True)
+
+    # the camera batch's least time: an inner pop reads two links (8 B) and
+    # both children's boxes (2 x 32 B) and makes two box tests
+    print("  camera 2^20 (binary):", flush=True)
+    bin_bound = _walk_bound(
+        torch, lambda touched: pt.raycast_plain(tables, o_cam, d_cam, count=True, touched=touched),
+        tables.ni, tables.nodes.shape[0], o_cam.shape[0], 8 + 2 * 32, 2, bvh.leaf_size)
 
     hk = pt.raycast(scene, o_cam[:N_CHECK], d_cam[:N_CHECK], tables=tables)
     hb = intersect.raycast_brute(o_cam[:N_CHECK], d_cam[:N_CHECK], *scene.geometry.corners())
@@ -544,6 +779,23 @@ def main() -> None:
     print("  stage breakdown (1M scene, 2^18 camera lanes, least of 3, CUDA events): "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()), flush=True)
 
+    # 3g. the full-material render at bench config 2's width (bench.py:202-219,
+    # spp cut from 256 to 16), then the courtyard under a constant sky
+    print("phase 3g: config 3g (Cornell box, Phong walls, glass block)", flush=True)
+    g_scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH,
+                                     wall_bsdf=ttt.BSDFType.PHONG,
+                                     block_bsdf=ttt.BSDFType.GLASS, device=dev)
+    g_opts = ttt.RenderOptions(width=512, height=512, samples_per_pixel=16, bounces=4,
+                               integrator=ttt.Integrator.DIRECT_MIS, subpixel_jitter=0.5,
+                               samples_per_launch=16, samples_per_lane=16)
+    _, l2, l4 = _render(torch, ttt, pt, g_scene, ttt.scenes.cornell_camera(device=dev), g_opts,
+                        "cornell_3g", check_unsorted=False)
+    main_launches.update(binary=l2, bvh4=l4)
+    sky = dataclasses.replace(scene, env_value=torch.tensor([0.5, 0.6, 0.8], device=dev))
+    s_opts = opts.replace(integrator=ttt.Integrator.DIRECT_MIS, env_on_miss=True, env_nee=True)
+    _, l2, l4 = _render(torch, ttt, pt, sky, cam, s_opts, "courtyard_sky", check_unsorted=False)
+    main_launches.update(binary=l2, bvh4=l4)
+
     # 3c. the compacted two-phase traversal (compact_bench's workload)
     print("phase 3c: compact_bench --M 128 256 (1M courtyard, 2^20 dir3-sorted camera rays)",
           flush=True)
@@ -576,26 +828,44 @@ def main() -> None:
                       f"{device}: {time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}, "
                       f"launches binary {pt.launches} bvh4 {pt.launches4}", flush=True)
         _twin_match(imgs[1], imgs[0])
+    main_launches.update(_material_twins(torch, ttt, pt))
 
-    print(f"main-path launches: {dict(main_launches)}", flush=True)
-    if main_launches["binary"] <= 0 or main_launches["bvh4"] <= 0:
+    # 5. the pattern probes through their entry points
+    probe_rows = _probe_phase(torch)
+
+    print(f"main-path launches: {dict(main_launches)}; probes "
+          f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
+    if main_launches["binary"] <= 0 or main_launches["bvh4"] <= 0 or \
+            sorted(probe_rows) != sorted(probes.KERNELS) or \
+            any(v["launches"] <= 0 for v in probe_rows.values()):
         raise AssertionError("a kernel of the main path was never launched")
     k_ms, p_ms = times["camera 2^20 closest-hit mt"]
-    mega4 = gate4["courtyard 1M"]
-    print(json.dumps({"kernels": [
+    m4 = gate4["courtyard 1M"]["bf16"]
+    walks = "no single PyTorch call walks a BVH"
+    kernels = [
         {"name": "bvh_traverse", "route": "cuda",
          "source": "terra_tpu_torch/csrc/bvh_traverse.cu",
          "replaces": "terra_tpu/accel/pallas_traverse.py:81",
          "launches": main_launches["binary"], "max_abs_err": max_err,
-         "ms": k_ms, "plain_ms": p_ms,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bin_bound[0], "bound_by": bin_bound[1],
+         "library_ms": None, "library": walks,
          "modes": {f"{label}/start_links": g["binary"] for label, g in starts.items()}},
         {"name": "bvh4_traverse", "route": "cuda",
          "source": "terra_tpu_torch/csrc/bvh4_traverse.cu",
          "replaces": "terra_tpu/accel/pallas_traverse.py:81",
          "launches": main_launches["bvh4"], "max_abs_err": max_err4,
-         "ms": mega4["bf16"]["ms"], "plain_ms": mega4["bf16"]["plain_ms"],
+         "ms": m4["ms"], "plain_ms": m4["plain_ms"], "bound_ms": m4["bound_ms"],
+         "bound_by": m4["bound_by"],
+         "library_ms": None, "library": walks,
          "modes": {f"{label}/{mode}": v for label, g in gate4.items() for mode, v in g.items()}},
-    ]}), flush=True)
+    ]
+    for name, row in probe_rows.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "terra_tpu_torch/csrc/pattern_probes.cu",
+                        "library_ms": None,
+                        "library": "no single PyTorch call computes a probe body",
+                        **row})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@ for NVIDIA Hopper.
 
 A port of ``terra_tpu`` (JAX on a TPU) that keeps its module paths and
 names. It imports neither JAX nor ``terra_tpu``; the JAX package is the
-reference its tests compare against. Tensors live on the device the caller
-names (``device=`` of the scene builders); CPU tensors take the plain
-PyTorch versions of the kernels, CUDA tensors the kernels themselves.
+reference its tests compare against. The scene builders, cameras and
+``interop``'s loaders put their tensors on ``"cuda"`` unless the caller
+passes ``device="cpu"``; CPU tensors take the plain PyTorch versions of
+the kernels, CUDA tensors the kernels themselves.
 
     import terra_tpu_torch as ttt
     scene = ttt.scenes.courtyard(device="cuda")

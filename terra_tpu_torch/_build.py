@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 
@@ -51,6 +52,14 @@ def build_shared(cmd: list[str], sources: list[str], stem: str,
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler (on PATH, else /usr/local/cuda/bin)."""
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
+    return path
 
 
 def build_log(path: str) -> str:

@@ -36,12 +36,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
 from dataclasses import dataclass
 
 import torch
 
-from .._build import build_shared
+from .._build import build_shared, nvcc
 from ..intersect import RayHit, T_FAR, leaf_test
 from .traverse import sort_order
 
@@ -232,11 +231,14 @@ def _leaf(tables, isect, rays, leaf, o, d, best_t, best_i, any_hit):
 
 
 def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",
-                  start=None):
+                  start=None, count: bool = False, touched=None):
     """Plain PyTorch traversal with the kernel's rules and visit order:
     every live ray pops one node per step. ``start``: optional (N,) i32
     start links (an internal id, or ni + leaf id; a single-leaf tree
-    ignores them). Returns (best_t, best_i)."""
+    ignores them). Returns (best_t, best_i), and with ``count`` also the
+    (N, 2) i32 per-ray counts of pops and leaf tests, which the kernel's
+    walk shares. ``touched``: optional (ni + C,) bool tensor in which every
+    popped node id is set (the nodes the walk reads, each once)."""
     _check_rays(o, d, t_max)
     _check_stack(tables)
     _check_start(start, o.shape[0], tables.nodes.shape[0])
@@ -247,20 +249,28 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
         inv = _inv_dir(d)
         best_t = t_max.clone() if t_max is not None else torch.full((n,), T_FAR, device=dev)
         best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
+        counts = torch.zeros((n, 2), dtype=torch.int32, device=dev)
         ni = tables.ni
         if ni == 0:
             zero = torch.zeros((n,), dtype=torch.int64, device=dev)
             _leaf(tables, isect, torch.arange(n, device=dev), zero, o, d, best_t, best_i, any_hit)
-            return best_t, best_i
+            counts[:] = 1
+            if touched is not None:
+                touched[0] = True
+            return (best_t, best_i, counts) if count else (best_t, best_i)
         stack, sp = _seed_stack(n, start, dev)
         live = torch.arange(n, device=dev)
         while live.numel() > 0:
             top = sp[live] - 1
             node = stack[live, top]
             sp[live] = top
+            counts[live, 0] += 1
+            if touched is not None:
+                touched[node] = True
             is_leaf = node >= ni
             lr = live[is_leaf]
             if lr.numel():
+                counts[lr, 1] += 1
                 better = _leaf(tables, isect, lr, node[is_leaf] - ni, o, d, best_t, best_i, any_hit)
                 if any_hit:  # the kernel stops a ray at its first hit
                     sp[lr[better]] = 0
@@ -281,7 +291,7 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
                 stack[ir[push1], spi[push1]] = first[push1]
                 sp[ir] = spi + push1
             live = live[sp[live] > 0]
-    return best_t, best_i
+    return (best_t, best_i, counts) if count else (best_t, best_i)
 
 
 # ---------------------------------------------------------------------------
@@ -501,14 +511,16 @@ def _wide_nodes(tables: WideTables) -> int:
 
 
 def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
-                   algo: str = "mt", count: bool = False, start=None):
+                   algo: str = "mt", count: bool = False, start=None, touched=None):
     """Plain PyTorch walk of the BVH4 overlay with the kernel's rules and
     visit order: every live ray pops one entry per step; a wide node tests
     its four child boxes, sorts the hits by entry t with the reference's
     network and pushes them far-first; a leaf is tested at once. ``start``:
     optional (N,) i32 start links (a wide id, or num_wide + leaf id).
     Returns (best_t, best_i), and with ``count`` also the (N, 3) i32
-    per-ray counts of pops, leaf tests and paged-node visits (nodes >= S)."""
+    per-ray counts of pops, leaf tests and paged-node visits (nodes >= S).
+    ``touched``: optional (num_wide + C,) bool tensor in which every popped
+    id is set."""
     _check_rays(o, d, t_max)
     _check_stack4(tables)
     _check_start(start, o.shape[0], _wide_nodes(tables))
@@ -529,6 +541,8 @@ def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
             node = stack[live, top]
             sp[live] = top
             counts[live, 0] += 1
+            if touched is not None:
+                touched[node] = True
             is_leaf = node >= w
             lr = live[is_leaf]
             if lr.numel():
@@ -578,13 +592,6 @@ def count_decode(steps) -> dict:
             "leaves": s[..., 1].sum(dim=1).numpy(), "paged": s[..., 2].sum(dim=1).numpy()}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
-    return path
-
-
 @functools.cache
 def load_kernel() -> ctypes.CDLL:
     """Build ``csrc/bvh_traverse.cu`` (once per source/flag hash) and load it."""
@@ -598,7 +605,7 @@ def load_kernel() -> ctypes.CDLL:
 
 def kernel_path() -> str:
     """Path of the built binary-tree kernel library (builds it if needed)."""
-    return build_shared([_nvcc(), *NVCC_FLAGS], [KERNEL_SRC], "bvh_traverse", deps=[COMMON_HDR])
+    return build_shared([nvcc(), *NVCC_FLAGS], [KERNEL_SRC], "bvh_traverse", deps=[COMMON_HDR])
 
 
 @functools.cache
@@ -614,7 +621,7 @@ def load_kernel4() -> ctypes.CDLL:
 
 def kernel4_path() -> str:
     """Path of the built BVH4 kernel library (builds it if needed)."""
-    return build_shared([_nvcc(), *NVCC_FLAGS], [KERNEL4_SRC], "bvh4_traverse",
+    return build_shared([nvcc(), *NVCC_FLAGS], [KERNEL4_SRC], "bvh4_traverse",
                         deps=[COMMON_HDR])
 
 

@@ -1,16 +1,16 @@
 """Wavefront integrator passes (port of ``terra_tpu/integrators.py``):
-SIMPLE (emissive only), DIRECT (next-event estimation) and DIRECT_MIS
-(NEE plus BSDF sampling, power-2 MIS). Each pass returns per-lane radiance
-already multiplied by the throughput. The debug integrators are not
-ported yet and raise; the environment-NEE strategies wait for envmap.py
-(``render`` refuses ``env_nee``)."""
+SIMPLE (emissive only), DIRECT (next-event estimation), DIRECT_MIS (NEE
+plus BSDF sampling, power-2 MIS), each with environment NEE when the
+context carries an env proposal (``ctx['env_dist']``), and the four debug
+views (first-hit mask, depth, normals, MIS weights). Each pass returns
+per-lane radiance already multiplied by the throughput."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
 
-from . import bsdf, lights
+from . import bsdf, envmap, lights
 from .intersect import mask_dead_rays
 from .ops import math3
 from .ops.rng import PathStreams as S
@@ -23,6 +23,7 @@ __all__ = ["make_integrator"]
 # light point never occludes itself.
 SHADOW_TMAX_SCALE = 1.0 - 1e-3
 PDF_CLAMP = 1e17  # keeps pdf^2 finite in f32
+FAR_PLANE = 500.0  # far plane of the depth view
 
 
 def _power2_weight(pa, pb):
@@ -86,9 +87,44 @@ def _nee_light_strategy(ctx, surf: Surface, wo, bounce, want_weight: bool, aux):
     return contrib, torch.where(visible, weight, 0.0), ls
 
 
+def _nee_env_strategy(ctx, surf: Surface, wo, bounce, want_weight: bool, aux):
+    """Environment NEE: a direction from the env proposal (streams ENV_U,
+    ENV_V) whose shadow ray must escape the scene, weighted by its
+    solid-angle pdf (power-2 MIS against the BSDF pdf with
+    ``want_weight``)."""
+    scene: Scene = ctx["scene"]
+    rng = ctx["rng"]
+    wi, env_pdf = envmap.sample(ctx["env_dist"], rng(bounce, S.ENV_U), rng(bounce, S.ENV_V))
+    nol = math3.dot(wi, surf.normal)
+    o_sh, d_sh = _shadow_ray(surf, wi, ctx)
+    hit = ctx["raycast"](o_sh, d_sh, any_hit=True, sort_hint=ctx["hit_tri"])
+    visible = _skip_delta(ctx, ~hit.hit & (nol > 0.0) & (env_pdf > 0.0))
+    f = bsdf.eval_f(surf, wi, wo, ctx["present"])
+    if want_weight:
+        weight = _power2_weight(env_pdf, bsdf.pdf(surf, wi, wo, aux, ctx["present"]))
+    else:
+        weight = torch.ones_like(env_pdf)
+    denom = torch.where(visible, env_pdf, 1.0)
+    contrib = envmap.radiance(scene, wi) * f * (nol * weight / denom)[..., None]
+    return torch.where(visible[..., None], contrib, 0.0)
+
+
+def _mis_bsdf_env_term(ctx, surf: Surface, wo, wi, f, bsdf_pdf, hit):
+    """Env radiance of an escaping MIS BSDF-strategy ray, weighted against
+    the env-NEE pdf (the counterpart of :func:`_nee_env_strategy`)."""
+    env_pdf = envmap.pdf(ctx["env_dist"], wi)
+    nol = math3.dot(wi, surf.normal)
+    ok = _skip_delta(ctx, ~hit.hit & (bsdf_pdf > 0.0) & (nol > 0.0))
+    weight = _power2_weight(bsdf_pdf, env_pdf)
+    denom = torch.where(ok, bsdf_pdf, 1.0)
+    contrib = envmap.radiance(ctx["scene"], wi) * f * (nol * weight / denom)[..., None]
+    return torch.where(ok[..., None], contrib, 0.0)
+
+
 def _mis_bsdf_strategy(ctx, surf: Surface, wo, bounce, ls):
     """BSDF-sampling strategy of DIRECT_MIS: trace a BSDF sample; if it
-    lands on the light object NEE picked, weight it by power-2 MIS."""
+    lands on the light object NEE picked, weight it by power-2 MIS; with
+    env NEE, an escaping sample adds the env term."""
     scene: Scene = ctx["scene"]
     rng = ctx["rng"]
     wi, aux = bsdf.sample(surf, rng(bounce, S.MIS_E0), rng(bounce, S.MIS_E1),
@@ -108,38 +144,94 @@ def _mis_bsdf_strategy(ctx, surf: Surface, wo, bounce, ls):
     nol = math3.dot(wi, surf.normal)
     denom = torch.where(ok, bsdf_pdf, 1.0)
     contrib = hit_surf.emissive * f * (nol * weight / denom)[..., None]
-    return torch.where(ok[..., None], contrib, 0.0), torch.where(ok, weight, 0.0)
+    contrib = torch.where(ok[..., None], contrib, 0.0)
+    if ctx.get("env_dist") is not None:
+        contrib = contrib + _mis_bsdf_env_term(ctx, surf, wo, wi, f, bsdf_pdf, hit)
+    return contrib, torch.where(ok, weight, 0.0)
 
 
 def _integrate_direct(ctx, surf: Surface, wo, throughput, bounce):
     facing = (math3.dot(wo, surf.normal) > 0.0) & _emit_gate(ctx, bounce)
     lo = torch.where(facing[..., None], surf.emissive, 0.0)
     contrib, _, _ = _nee_light_strategy(ctx, surf, wo, bounce, want_weight=False, aux=None)
+    if ctx.get("env_dist") is not None:
+        contrib = contrib + _nee_env_strategy(ctx, surf, wo, bounce, want_weight=False, aux=None)
     return (lo + contrib) * throughput
+
+
+def _mis_aux(ctx, surf: Surface, wo, bounce):
+    """Lobe pick of the MIS BSDF sample, which the light strategies' pdfs
+    use (the reference samples the BSDF first and reuses its pick)."""
+    rng = ctx["rng"]
+    return bsdf.sample(surf, rng(bounce, S.MIS_E0), rng(bounce, S.MIS_E1),
+                       rng(bounce, S.MIS_E2), wo, ctx["present"])[1]
 
 
 def _integrate_direct_mis(ctx, surf: Surface, wo, throughput, bounce):
     facing = (math3.dot(wo, surf.normal) > 0.0) & _emit_gate(ctx, bounce)
     lo = torch.where(facing[..., None], surf.emissive, 0.0)
-    # the light strategy's pdf uses the lobe pick of the MIS BSDF sample
-    rng = ctx["rng"]
-    _, aux = bsdf.sample(surf, rng(bounce, S.MIS_E0), rng(bounce, S.MIS_E1),
-                         rng(bounce, S.MIS_E2), wo, ctx["present"])
+    aux = _mis_aux(ctx, surf, wo, bounce)
     light_c, _, ls = _nee_light_strategy(ctx, surf, wo, bounce, want_weight=True, aux=aux)
     bsdf_c, _ = _mis_bsdf_strategy(ctx, surf, wo, bounce, ls)
-    return (lo + light_c + bsdf_c) * throughput
+    lo = lo + light_c + bsdf_c
+    if ctx.get("env_dist") is not None:
+        lo = lo + _nee_env_strategy(ctx, surf, wo, bounce, want_weight=True, aux=aux)
+    return lo * throughput
+
+
+def _first_hit(surf: Surface, bounce):
+    """(N, 1) mask of lanes at bounce 0 (``bounce`` an int or a lane tensor)."""
+    first = torch.as_tensor(bounce, device=surf.t.device) == 0
+    return first.expand(surf.t.shape)[..., None]
+
+
+def _integrate_debug_mono(ctx, surf: Surface, wo, throughput, bounce):
+    """White on the first hit."""
+    return torch.where(_first_hit(surf, bounce), 1.0, 0.0).expand(*surf.t.shape, 3)
+
+
+def _integrate_debug_depth(ctx, surf: Surface, wo, throughput, bounce):
+    """Distance from the bounce-0 ray origin (the camera) over the far plane."""
+    d = math3.length(surf.point - ctx["ray_origin"]) / FAR_PLANE
+    return torch.where(_first_hit(surf, bounce), d[..., None], 0.0)
+
+
+_NORMAL_COLORS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0),  # +x +y +z
+                  (0.0, 1.0, 1.0), (1.0, 0.0, 1.0), (1.0, 1.0, 0.0))  # -x -y -z
+
+
+def _integrate_debug_normals(ctx, surf: Surface, wo, throughput, bounce):
+    """Signed-normal color map: each axis's positive and negative part
+    mixes its own color."""
+    n = surf.normal
+    cols = [torch.tensor(c, dtype=torch.float32, device=n.device) for c in _NORMAL_COLORS]
+    p = torch.clamp(n, 0.0, 1.0)
+    m = -torch.clamp(n, -1.0, 0.0)
+    color = (p[..., 0:1] * cols[0] + p[..., 1:2] * cols[1] + p[..., 2:3] * cols[2]
+             + m[..., 0:1] * cols[3] + m[..., 1:2] * cols[4] + m[..., 2:3] * cols[5])
+    return torch.where(_first_hit(surf, bounce), color, 0.0)
+
+
+def _integrate_debug_mis_weights(ctx, surf: Surface, wo, throughput, bounce):
+    """MIS weights at bounce 0: the BSDF strategy's in red, the light
+    strategy's in blue."""
+    aux = _mis_aux(ctx, surf, wo, bounce)
+    _, w_light, ls = _nee_light_strategy(ctx, surf, wo, bounce, want_weight=True, aux=aux)
+    _, w_bsdf = _mis_bsdf_strategy(ctx, surf, wo, bounce, ls)
+    color = torch.stack([w_bsdf, torch.zeros_like(w_bsdf), w_light], dim=-1)
+    return torch.where(_first_hit(surf, bounce), color, 0.0) * throughput
 
 
 _TABLE = {
     Integrator.SIMPLE: _integrate_simple,
     Integrator.DIRECT: _integrate_direct,
     Integrator.DIRECT_MIS: _integrate_direct_mis,
+    Integrator.DEBUG_MONO: _integrate_debug_mono,
+    Integrator.DEBUG_DEPTH: _integrate_debug_depth,
+    Integrator.DEBUG_NORMALS: _integrate_debug_normals,
+    Integrator.DEBUG_MIS_WEIGHTS: _integrate_debug_mis_weights,
 }
 
 
 def make_integrator(kind: Integrator) -> Callable:
-    kind = Integrator(kind)
-    if kind not in _TABLE:
-        raise NotImplementedError(
-            f"integrator {kind.name} is not ported yet (ROADMAP queue A, integrators.py)")
-    return _TABLE[kind]
+    return _TABLE[Integrator(kind)]

@@ -30,7 +30,7 @@ def _fields(cls, d: dict, device):
     return cls(**_tensors(d, cls.__dataclass_fields__, device))
 
 
-def scene_from_numpy(d: dict, device="cpu") -> Scene:
+def scene_from_numpy(d: dict, device="cuda") -> Scene:
     """Scene from the nested field dict of a committed JAX scene."""
     mats = d["materials"]
     materials = MaterialTable(
@@ -61,6 +61,6 @@ def scene_from_numpy(d: dict, device="cpu") -> Scene:
     )
 
 
-def camera_from_numpy(d: dict, device="cpu") -> Camera:
+def camera_from_numpy(d: dict, device="cuda") -> Camera:
     """Camera from the field dict of a JAX camera."""
     return _fields(Camera, d, device)

@@ -1,0 +1,256 @@
+"""The pattern probes: hand-written CUDA kernels and their plain PyTorch versions.
+
+The reference's probe scripts (``scripts/smem_dma_probe.py``,
+``scripts/rowmask_patterns_probe.py``, ``scripts/paged_patterns_probe.py``)
+each run tiny Pallas kernels that asked whether Mosaic compiles the
+patterns of the paged traversal and the row-masked leaf test: an async
+copy into scratch waited on a semaphore (also inside a data-dependent
+loop), scalar reads of the staged words, row reductions, row-activity
+bits and per-row masked stores. ``csrc/pattern_probes.cu`` asks the same
+of Hopper with one kernel per ``pallas_call`` site: a TMA bulk copy into
+shared memory completed on an mbarrier, warp reductions, warp votes and
+predicated row stores (the source note says how each pattern maps).
+
+Each of the eleven probe bodies has a wrapper here (:data:`BODIES` names
+them) and a plain PyTorch version of the same function. A wrapper takes the
+plain version for a CPU tensor; for a CUDA tensor it launches the kernel
+on the current stream, raises if the launch fails, and never falls back.
+:data:`launches` counts kernel launches. Every value involved is an
+integer below 2^24 (or 1e9 plus one), exact in f32, so kernel and plain
+version agree word for word.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ._build import build_shared, nvcc
+
+__all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "make_input", "load_kernel",
+           "kernel_path", "launches", "ROWS", "W"]
+
+ROWS, W = 8, 128  # the (8, 128) output block of every probe
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "pattern_probes.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Number of probe-kernel launches made through the wrappers.
+launches = 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def _full(value):
+    return value.expand(ROWS, W).contiguous()
+
+
+def _hbm_to_smem_plain(x):
+    scr = x[2:4].clone()
+    return _full(scr[0, 0] + scr[1, 1] + scr[0, W - 1])
+
+
+def _i32_loop_plain(x):
+    scr = x[0:4].clone()
+    acc = x.new_zeros(())
+    for i in range(min(int(scr[0, 0]), W)):
+        acc = acc + scr[i % 4, i]
+    return _full(acc)
+
+
+def _dma_in_while_plain(x):
+    acc = x.new_zeros(())
+    for i in range(4):
+        scr = x[i:i + 1].clone()
+        acc = acc + scr[0, 0]
+    return _full(acc)
+
+
+def _row_store(out, bits, rows):
+    """out[r] = rows[r] where bit r of ``bits`` is set (the pl.when stores)."""
+    for r in range(ROWS):
+        if (bits >> r) & 1:
+            out[r] = rows[r]
+    return out
+
+
+def _rowmask_plain(probe: int):
+    def body(x):
+        scr = x[0:ROWS].clone()
+        out = x.new_zeros((ROWS, W))
+        if probe == 1:
+            return _row_store(out, 0b10100110, scr * 2.0)
+        if probe == 2:
+            for r in range(ROWS):
+                col = scr[:, r:r + 1]
+                out[r] = torch.amin(col * scr[r][None, :] + col, dim=0)
+            return out
+        rowany = (scr > 700.0).any(dim=1)
+        bits = sum(int(rowany[r]) << r for r in range(ROWS))
+        return _row_store(out, bits, x.new_ones((ROWS, W)))
+    return body
+
+
+def _rowmask_planes_plain(x):
+    plane = x[0:ROWS].clone()
+    masks = [torch.where(plane > 600.0 + 100.0 * s, plane, 1e9) for s in range(3)]
+    out = x.new_zeros((ROWS, W))
+    for m in masks:
+        rowany = (m < 1e9).any(dim=1)
+        out = torch.where(rowany[:, None], out + m, out)
+    return out
+
+
+def _paged_plain(probe: int):
+    def body(x):
+        acc = x.new_zeros(())
+        stack = x.new_zeros((8,), dtype=torch.int32)
+        for i in range(3):
+            scr = x[4 * i:4 * i + 4].clone()
+            if probe == 1:
+                s = torch.amin(scr[1])
+            elif probe == 2:
+                s = scr[1, 3]
+            elif probe == 3:
+                s = torch.amin(scr[2])
+            else:
+                link = torch.amin(scr[2]).to(torch.int32)
+                push = bool(link > 4)
+                if push:
+                    stack[i] = link
+                s = (stack[i] if push else stack.new_zeros(())).to(torch.float32)
+            acc = acc + s
+        return _full(acc)
+    return body
+
+
+# ------------------------------------------------------------------ table
+
+@dataclass(frozen=True)
+class Body:
+    """One probe body: the kernel that runs it, the body number passed to
+    kernels that serve several bodies, the input the reference builds
+    (dtype, rows, and "arange" or "row_ids"), the TPU kernel it replaces,
+    its plain version, and the work it needs: input rows staged and
+    arithmetic operations (for the card's least time)."""
+
+    kernel: str
+    probe: int
+    dtype: torch.dtype
+    rows: int
+    replaces: str
+    plain: Callable
+    staged_rows: int
+    ops: int
+    fill: str = "arange"
+
+
+# kernel name -> (C launcher, whether it takes a body number)
+KERNELS = {
+    "probe_hbm_to_smem": ("terra_probe_hbm_to_smem", False),
+    "probe_hbm_to_smem_i32_loop": ("terra_probe_hbm_to_smem_i32_loop", False),
+    "probe_smem_dma_in_while": ("terra_probe_smem_dma_in_while", False),
+    "rowmask_patterns": ("terra_probe_rowmask", True),
+    "rowmask_mask_planes": ("terra_probe_rowmask_planes", False),
+    "paged_patterns": ("terra_probe_paged", True),
+}
+
+_F32, _I32 = torch.float32, torch.int32
+_BLOCK = ROWS * W
+BODIES = {
+    "smem_dma/hbm_to_smem": Body("probe_hbm_to_smem", 0, _F32, 64,
+                                 "scripts/smem_dma_probe.py:22", _hbm_to_smem_plain, 2, 2),
+    "smem_dma/hbm_to_smem_i32_loop": Body("probe_hbm_to_smem_i32_loop", 0, _I32, 8,
+                                          "scripts/smem_dma_probe.py:50", _i32_loop_plain, 4,
+                                          10),
+    "smem_dma/smem_dma_in_while": Body("probe_smem_dma_in_while", 0, _F32, 8,
+                                       "scripts/smem_dma_probe.py:93", _dma_in_while_plain, 4,
+                                       4),
+    "rowmask/probe1": Body("rowmask_patterns", 1, _F32, 16, "scripts/rowmask_patterns_probe.py:31",
+                           _rowmask_plain(1), 8, _BLOCK),
+    "rowmask/probe2": Body("rowmask_patterns", 2, _F32, 16, "scripts/rowmask_patterns_probe.py:31",
+                           _rowmask_plain(2), 8, 3 * ROWS * _BLOCK),
+    "rowmask/probe3": Body("rowmask_patterns", 3, _F32, 16, "scripts/rowmask_patterns_probe.py:31",
+                           _rowmask_plain(3), 8, 2 * _BLOCK),
+    "rowmask/probe4": Body("rowmask_mask_planes", 0, _F32, 16,
+                           "scripts/rowmask_patterns_probe.py:123", _rowmask_planes_plain, 8,
+                           9 * _BLOCK),
+    **{f"paged/probe{p}": Body("paged_patterns", p, _F32, 16,
+                               "scripts/paged_patterns_probe.py:24", _paged_plain(p), 12,
+                               3 * (W if p != 2 else 1) + 3, "row_ids" if p > 2 else "arange")
+       for p in (1, 2, 3, 4)},
+}
+
+
+def make_input(name: str, device="cuda") -> torch.Tensor:
+    """The input the reference builds for body ``name``: an arange of its
+    shape (i32 with x[0, 0] = 5 for the loop probe), or each row's index
+    in every lane."""
+    body = BODIES[name]
+    if body.fill == "row_ids":
+        return torch.arange(body.rows, dtype=body.dtype, device=device)[:, None].repeat(1, W)
+    x = torch.arange(body.rows * W, dtype=body.dtype, device=device).reshape(body.rows, W)
+    if body.dtype == torch.int32:
+        x[0, 0] = 5
+    return x
+
+
+# ------------------------------------------------------------------ kernels
+
+def kernel_path() -> str:
+    """Path of the built probe library (builds it if needed)."""
+    return build_shared([nvcc(), *NVCC_FLAGS], [SRC], "pattern_probes")
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build ``csrc/pattern_probes.cu`` (once per source/flag hash) and load it."""
+    lib = ctypes.CDLL(kernel_path())
+    p = ctypes.c_void_p
+    for fn, numbered in KERNELS.values():
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [p, p, ctypes.c_int, p] if numbered else [p, p, p]
+    return lib
+
+
+def _check(body: Body, x: torch.Tensor):
+    if x.dtype != body.dtype or tuple(x.shape) != (body.rows, W):
+        raise ValueError(f"{body.kernel} takes a ({body.rows}, {W}) {body.dtype} tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
+def run_plain(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of body ``name``, on ``x``'s device."""
+    body = BODIES[name]
+    _check(body, x)
+    return body.plain(x)
+
+
+def run(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Body ``name`` of :data:`BODIES` on ``x``: the plain version for a
+    CPU tensor, the kernel for a CUDA tensor. Returns the (8, 128) output
+    in ``x``'s dtype."""
+    global launches
+    body = BODIES[name]
+    _check(body, x)
+    if x.device.type == "cpu":
+        return body.plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{body.kernel} runs on cpu or cuda tensors, got {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{body.kernel} needs a contiguous, 16-byte-aligned input (the bulk "
+                         f"copy's rule)")
+    fn, numbered = KERNELS[body.kernel]
+    out = torch.empty((ROWS, W), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), out.data_ptr(), *((body.probe,) if numbered else ()), stream)
+    rc = getattr(load_kernel(), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{body.kernel} launch failed: cudaError {rc}")
+    launches += 1
+    return out

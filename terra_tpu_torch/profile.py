@@ -179,7 +179,9 @@ def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536) -
     def stage_bounce():
         u = rng_mod.path_uniform_bundle(key, pixel_idx, sample_idx, 0, streams)
         hit = raycast(o, d)
-        surf, radiance = _shade(scene, ctx_base, integrator, hit, o, d, hit.hit, ones, 0, u)
+        emit_ok = torch.ones_like(hit.hit) if ctx_base["has_delta"] else None  # bounce 0
+        surf, radiance, _ = _shade(scene, ctx_base, integrator, hit, o, d, hit.hit, ones, 0, u,
+                                   emit_ok)
         return radiance, _continue(surf, u, -d, ones, ctx_base["present"])
 
     out = {}

@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bsdf, camera as camera_mod, intersect
+from . import bsdf, camera as camera_mod, envmap, intersect
 from .accel import pallas_traverse, traverse
 from .film import Film
 from .integrators import make_integrator
@@ -71,12 +71,6 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
     return raycast
 
 
-def _check_supported(opts: RenderOptions):
-    if opts.env_on_miss or opts.env_nee:
-        raise NotImplementedError(
-            "env_on_miss / env_nee need envmap.py, not ported yet (ROADMAP queue A)")
-
-
 def _pixel_jitter(opts: RenderOptions, key, pixel_idx, sample_idx):
     """Pixel-jitter uniforms of the selected sampling method."""
     method = opts.sampling_method
@@ -114,31 +108,48 @@ def _streams_for(integrator, env_nee: bool = False) -> tuple:
 
 def _continue(surf, u, wo, throughput, present):
     """BSDF sample, pdf, f and cosine of the path continuation; returns
-    (wi, unnormalised new throughput, continuation origin)."""
+    (wi, unnormalised new throughput, continuation origin). Transmitted
+    rays continue from the far side of the surface."""
     wi, aux = bsdf.sample(surf, u[S.BSDF_E0], u[S.BSDF_E1], u[S.BSDF_E2], wo, present)
     pdf = torch.clamp(bsdf.pdf(surf, wi, wo, aux, present), min=EPS)
     f = bsdf.eval_f(surf, wi, wo, present)
-    nol, _ = bsdf.continuation_factors(surf, wi, present)
+    nol, off_sign = bsdf.continuation_factors(surf, wi, present)
     new_tp = throughput * f * (nol / pdf)[..., None]
-    new_o = surf.point + surf.normal * intersect.SURFACE_OFFSET_NORMAL
-    return wi, new_tp, new_o
+    offset = intersect.SURFACE_OFFSET_NORMAL
+    if off_sign is not None:
+        offset = (off_sign * offset)[..., None]
+    return wi, new_tp, surf.point + surf.normal * offset
 
 
-def _shade(scene, ctx_base, integrator, hit, o, d, active, throughput, bounce, u):
-    """Surface, integrator radiance and the context of one bounce."""
+def _miss_env(scene, opts: RenderOptions, d, throughput, miss, emit_ok, bounce):
+    """Env radiance picked up by rays that miss (``env_on_miss``). Under
+    env NEE the shaded vertices already sampled the environment, so only
+    camera rays and rays leaving a delta lobe add it: the specular-bounce
+    flag gates it where the scene has delta lobes, ``bounce == 0`` where
+    it has none."""
+    if opts.env_nee:
+        miss = miss & (emit_ok if emit_ok is not None else bounce == 0)
+    return torch.where(miss[..., None], throughput * envmap.radiance(scene, d), 0.0)
+
+
+def _shade(scene, ctx_base, integrator, hit, o, d, active, throughput, bounce, u, emit_ok):
+    """Surface, integrator radiance and the per-lane delta mask of one
+    bounce."""
     surf = surface_init(scene, ctx_base["tables"], o + d * intersect.RAY_OFFSET_DIR, d, hit.tri)
     ctx = dict(ctx_base, rng=lambda _bounce, stream: u[stream], ray_origin=o, active=active,
-               delta=bsdf.delta_mask(surf, ctx_base["present"]),
+               emit_ok=emit_ok, delta=bsdf.delta_mask(surf, ctx_base["present"]),
                hit_tri=torch.where(active, hit.tri, -1))
     radiance = integrator(ctx, surf, -d, throughput, bounce)
-    return surf, radiance
+    return surf, radiance, ctx["delta"]
 
 
 def _context(scene: Scene, opts: RenderOptions):
-    _check_supported(opts)
+    present = scene.materials.types_present
     return dict(scene=scene, raycast=make_raycast_fn(scene, opts),
-                tables=build_shade_tables(scene), present=scene.materials.types_present,
-                light_area=opts.light_pick == LightPick.AREA, emit_ok=None)
+                tables=build_shade_tables(scene), present=present,
+                light_area=opts.light_pick == LightPick.AREA,
+                env_dist=envmap.build_distribution(scene) if opts.env_nee else None,
+                has_delta=any(t in present for t in bsdf.DELTA_TYPES))
 
 
 @torch.no_grad()
@@ -154,13 +165,17 @@ def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
     lo = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    # specular-bounce flag, carried where the scene has delta lobes
+    emit_ok = active.clone() if ctx_base["has_delta"] else None
     for bounce in range(opts.bounces + 1):
         u = rng_mod.path_uniform_bundle(key, pixel_idx, sample_idx, bounce, streams)
         hit = ctx_base["raycast"](*intersect.mask_dead_rays(active, o, d),
                                   sort_hint=torch.where(active, prev_tri, -1))
+        if opts.env_on_miss:
+            lo = lo + _miss_env(scene, opts, d, throughput, active & ~hit.hit, emit_ok, bounce)
         active = active & hit.hit
-        surf, radiance = _shade(scene, ctx_base, integrator, hit, o, d, active,
-                                throughput, bounce, u)
+        surf, radiance, delta = _shade(scene, ctx_base, integrator, hit, o, d, active,
+                                       throughput, bounce, u, emit_ok)
         lo = lo + torch.where(active[..., None], radiance, 0.0)
 
         wi, new_tp, new_o = _continue(surf, u, -d, throughput, ctx_base["present"])
@@ -173,6 +188,7 @@ def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
         d = torch.where(live, wi, d)
         throughput = torch.where(live, new_tp, throughput)
         prev_tri = torch.where(active, hit.tri, -1)
+        emit_ok = delta
     return lo
 
 
@@ -205,6 +221,7 @@ def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_
     done = torch.zeros((n,), dtype=torch.int64, device=dev)
     finished = torch.zeros((n,), dtype=torch.bool, device=dev)
     prev_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    emit_ok = ~finished if ctx_base["has_delta"] else None
     for _ in range(quota * (opts.bounces + 1)):
         if bool(finished.all()):
             break
@@ -212,9 +229,12 @@ def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_
         u = rng_mod.path_uniform_bundle(key, pixel_idx, sample, bounce, streams)
         hit = ctx_base["raycast"](*intersect.mask_dead_rays(active, o, d),
                                   sort_hint=torch.where(active, prev_tri, -1))
+        if opts.env_on_miss:
+            lo_sample = lo_sample + _miss_env(scene, opts, d, throughput, active & ~hit.hit,
+                                              emit_ok, bounce)
         alive = active & hit.hit
-        surf, radiance = _shade(scene, ctx_base, integrator, hit, o, d, alive,
-                                throughput, bounce, u)
+        surf, radiance, delta = _shade(scene, ctx_base, integrator, hit, o, d, alive,
+                                       throughput, bounce, u, emit_ok)
         lo_sample = lo_sample + torch.where(alive[..., None], radiance, 0.0)
 
         wi, new_tp, cont_o = _continue(surf, u, -d, throughput, ctx_base["present"])
@@ -240,6 +260,8 @@ def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_
         lo_sample = torch.where(path_end[..., None], 0.0, lo_sample)
         bounce = torch.where(regen, 0, torch.where(survive, bounce + 1, bounce))
         prev_tri = torch.where(regen, -1, torch.where(survive, hit.tri, prev_tri))
+        if emit_ok is not None:  # fresh paths start True; continuations carry delta
+            emit_ok = regen | delta
     return lo_total
 
 

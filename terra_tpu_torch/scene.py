@@ -195,7 +195,7 @@ class Camera:
     fov_deg: torch.Tensor
 
     @staticmethod
-    def make(position, direction, up=(0.0, 1.0, 0.0), fov_deg=45.0, device="cpu") -> "Camera":
+    def make(position, direction, up=(0.0, 1.0, 0.0), fov_deg=45.0, device="cuda") -> "Camera":
         def f32(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=device)
 

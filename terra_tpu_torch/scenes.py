@@ -36,7 +36,7 @@ def _geometry(tris: np.ndarray, uvs: np.ndarray, mat_ids, obj_ids, device) -> Ge
     )
 
 
-def make_geometry(tri_list, mat_ids, obj_ids=None, device="cpu") -> Geometry:
+def make_geometry(tri_list, mat_ids, obj_ids=None, device="cuda") -> Geometry:
     """Geometry from a list of (a, b, c) corner triples; flat normals, uvs
     (0,0) (1,0) (1,1) per triangle."""
     tris = np.asarray(tri_list, np.float32)
@@ -64,7 +64,7 @@ def _materials(bsdf_types, attrs, emissive, iors, device, attr_tex=None) -> Mate
 def cornell_box(accelerator: Accelerator = Accelerator.BRUTE, light_emission: float = 15.0,
                 with_blocks: bool = True, wall_bsdf: BSDFType = BSDFType.DIFFUSE,
                 block_bsdf: BSDFType = BSDFType.DIFFUSE, block_ior: float = 1.5,
-                env_value=(0.0, 0.0, 0.0), device="cpu") -> Scene:
+                env_value=(0.0, 0.0, 0.0), device="cuda") -> Scene:
     """Classic Cornell box (left-handed, Y-up, camera down +Z). Materials:
     0 white, 1 red, 2 green, 3 light; ``wall_bsdf`` switches the white
     walls, ``block_bsdf`` the short block (material 4)."""
@@ -132,14 +132,14 @@ def cornell_box(accelerator: Accelerator = Accelerator.BRUTE, light_emission: fl
     return commit(geom, materials, accelerator=accelerator, env_value=env_value)
 
 
-def cornell_camera(device="cpu") -> Camera:
+def cornell_camera(device="cuda") -> Camera:
     return Camera.make(position=(278.0, 273.0, -800.0), direction=(0.0, 0.0, 1.0),
                        up=(0.0, 1.0, 0.0), fov_deg=39.3, device=device)
 
 
 def courtyard(grid: int = 300, columns: int = 40, column_segments: int = 48,
               column_levels: int = 16, accelerator: Accelerator = Accelerator.BVH,
-              textured: bool = True, tex_res: int = 128, device="cpu") -> Scene:
+              textured: bool = True, tex_res: int = 128, device="cuda") -> Scene:
     """Procedural courtyard (~242k triangles at defaults): displaced
     terrain, a colonnade of fluted GGX columns, a surrounding wall and two
     area lights, with a checker and a marble texture."""
@@ -274,13 +274,13 @@ def courtyard(grid: int = 300, columns: int = 40, column_segments: int = 48,
     return commit(geom, materials, textures=atlas, accelerator=accelerator)
 
 
-def courtyard_camera(device="cpu") -> Camera:
+def courtyard_camera(device="cuda") -> Camera:
     return Camera.make(position=(20.0, 4.0, 3.0), direction=(0.0, 0.08, 1.0),
                        up=(0.0, 1.0, 0.0), fov_deg=60.0, device=device)
 
 
 def random_triangles(n: int, seed: int = 0, scale: float = 1.0,
-                     accelerator: Accelerator = Accelerator.BRUTE, device="cpu") -> Scene:
+                     accelerator: Accelerator = Accelerator.BRUTE, device="cuda") -> Scene:
     """Random triangle soup for intersection and BVH tests."""
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-scale, scale, (n, 1, 3)).astype(np.float32)

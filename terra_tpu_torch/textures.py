@@ -1,12 +1,17 @@
 """Texture atlas sampling (port of ``terra_tpu/textures.py``): wrap, mirror
-and clamp addressing, point and bilinear filtering, UVs in [0, 1]."""
+and clamp addressing, point and bilinear filtering, UVs in [0, 1], and the
+lat-long environment lookup."""
 from __future__ import annotations
+
+import math
 
 import torch
 
+from .ops import math3
 from .scene import TextureAtlas
 
-__all__ = ["sample", "FILTER_POINT", "FILTER_BILINEAR", "ADDR_WRAP", "ADDR_MIRROR", "ADDR_CLAMP"]
+__all__ = ["sample", "sample_latlong", "FILTER_POINT", "FILTER_BILINEAR", "ADDR_WRAP",
+           "ADDR_MIRROR", "ADDR_CLAMP"]
 
 FILTER_POINT = 0
 FILTER_BILINEAR = 1
@@ -57,3 +62,12 @@ def sample(atlas: TextureAtlas, tex_id, uv):
     bilinear = (n1 * (1 - w_u) + n2 * w_u) * (1 - w_v) + (n3 * (1 - w_u) + n4 * w_u) * w_v
     filt = atlas.filter[tid][..., None]
     return torch.where(filt == FILTER_BILINEAR, bilinear, n1)
+
+
+def sample_latlong(atlas: TextureAtlas, tex_id, direction):
+    """Lat-long environment lookup: theta = acos(y), phi = atan2(z, x) + pi,
+    uv = (phi / 2pi, theta / pi)."""
+    d = math3.normalize(direction)
+    theta = torch.acos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.atan2(d[..., 2], d[..., 0]) + math.pi
+    return sample(atlas, tex_id, torch.stack([phi / (2 * math.pi), theta / math.pi], dim=-1))

@@ -42,12 +42,13 @@ def test_ray_count_matches_reference(integrator, avg):
 
 
 def test_stage_breakdown_and_device_trace_on_cpu(tmp_path):
-    scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH)
+    scene = ttt.scenes.cornell_box(device="cpu", accelerator=ttt.Accelerator.BVH)
     opts = ttt.RenderOptions(width=8, height=8, samples_per_pixel=1, bounces=1,
                              integrator=ttt.Integrator.DIRECT)
     tprof.profiler.clear()
     with tprof.device_trace(str(tmp_path)) as prof:
-        out = tprof.stage_breakdown(scene, ttt.scenes.cornell_camera(), opts, probe_lanes=256)
+        out = tprof.stage_breakdown(scene, ttt.scenes.cornell_camera(device="cpu"), opts,
+                                    probe_lanes=256)
     assert set(out) == {"raycast", "surface", "bounce"}
     assert all(v > 0 for v in out.values())
     assert tprof.profiler.stats("stage/bounce").n == 1

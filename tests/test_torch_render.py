@@ -52,8 +52,8 @@ def cornell_refs():
 @pytest.mark.parametrize("integrator", INTEGRATORS)
 def test_bvh_cornell_matches_reference_and_mirror(cornell_refs, integrator):
     _, to = _opts(**CORNELL, integrator=integrator)
-    img = _port_image(ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH),
-                      ttt.scenes.cornell_camera(), to, 3)
+    img = _port_image(ttt.scenes.cornell_box(device="cpu", accelerator=ttt.Accelerator.BVH),
+                      ttt.scenes.cornell_camera(device="cpu"), to, 3)
     ref, mir = cornell_refs[integrator]
     _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
     _assert_twin_match(img, mir, TOL, FLIP, ENERGY)
@@ -61,8 +61,8 @@ def test_bvh_cornell_matches_reference_and_mirror(cornell_refs, integrator):
 
 def test_persistent_lanes_match_reference(cornell_refs):
     jo, to = _opts(**CORNELL, integrator=tt.Integrator.DIRECT, samples_per_lane=4)
-    img = _port_image(ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH),
-                      ttt.scenes.cornell_camera(), to, 3)
+    img = _port_image(ttt.scenes.cornell_box(device="cpu", accelerator=ttt.Accelerator.BVH),
+                      ttt.scenes.cornell_camera(device="cpu"), to, 3)
     ref, _ = _reference(tt.scenes.cornell_box(accelerator=tt.Accelerator.BVH),
                         tt.scenes.cornell_camera(), jo, 3, with_mirror=False)
     _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
@@ -74,8 +74,9 @@ def test_ggx_mis_matches_reference_and_mirror():
     jo, to = _opts(width=16, height=16, samples_per_pixel=8, bounces=2,
                    integrator=tt.Integrator.DIRECT_MIS, accelerator=tt.Accelerator.BVH)
     js = tt.scenes.cornell_box(wall_bsdf=tt.BSDFType.GGX, accelerator=tt.Accelerator.BVH)
-    ts = ttt.scenes.cornell_box(wall_bsdf=ttt.BSDFType.GGX, accelerator=ttt.Accelerator.BVH)
-    img = _port_image(ts, ttt.scenes.cornell_camera(), to, 11)
+    ts = ttt.scenes.cornell_box(device="cpu", wall_bsdf=ttt.BSDFType.GGX,
+                                accelerator=ttt.Accelerator.BVH)
+    img = _port_image(ts, ttt.scenes.cornell_camera(device="cpu"), to, 11)
     ref, mir = _reference(js, tt.scenes.cornell_camera(), jo, 11)
     _assert_twin_match(img, ref, TOL, FLIP_GGX, ENERGY)
     _assert_twin_match(img, mir, TOL, FLIP_GGX, ENERGY)
@@ -85,7 +86,8 @@ def test_brute_cornell_matches_reference_and_mirror():
     jo, to = _opts(width=16, height=16, samples_per_pixel=8, bounces=2,
                    integrator=tt.Integrator.DIRECT, subpixel_jitter=0.5,
                    sampling_method=tt.SamplingMethod.STRATIFIED)
-    img = _port_image(ttt.scenes.cornell_box(), ttt.scenes.cornell_camera(), to, 9)
+    img = _port_image(ttt.scenes.cornell_box(device="cpu"),
+                      ttt.scenes.cornell_camera(device="cpu"), to, 9)
     ref, mir = _reference(tt.scenes.cornell_box(), tt.scenes.cornell_camera(), jo, 9)
     _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
     _assert_twin_match(img, mir, TOL, FLIP, ENERGY)
@@ -107,11 +109,11 @@ COURTYARD = dict(width=24, height=24, samples_per_pixel=4, bounces=2,
 def test_textured_courtyard_matches_reference(courtyard_ref, source):
     js, ref = courtyard_ref
     if source == "interop":  # the reference's own committed scene and tree
-        ts = interop.scene_from_numpy(flatten(js))
+        ts = interop.scene_from_numpy(flatten(js), device="cpu")
     else:
-        ts = ttt.scenes.courtyard(**SMALL_COURTYARD)
+        ts = ttt.scenes.courtyard(device="cpu", **SMALL_COURTYARD)
     _, to = _opts(**COURTYARD)
-    img = _port_image(ts, ttt.scenes.courtyard_camera(), to, 3)
+    img = _port_image(ts, ttt.scenes.courtyard_camera(device="cpu"), to, 3)
     assert np.isfinite(img).all() and img.std() > 1e-3
     _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
 
@@ -129,11 +131,11 @@ def test_courtyard_table_kinds_match_reference(courtyard_ref, kind, monkeypatch)
     """The render walks whichever tables pack_tables_auto hands it; each
     kind gives the reference's image within the twin budgets."""
     _, ref = courtyard_ref
-    ts = ttt.scenes.courtyard(**SMALL_COURTYARD)
+    ts = ttt.scenes.courtyard(device="cpu", **SMALL_COURTYARD)
     assert ts.bvh.num_wide > 4
     monkeypatch.setattr(tpt, "pack_tables_auto", TABLE_KINDS[kind])
     _, to = _opts(**COURTYARD)
-    img = _port_image(ts, ttt.scenes.courtyard_camera(), to, 3)
+    img = _port_image(ts, ttt.scenes.courtyard_camera(device="cpu"), to, 3)
     _assert_twin_match(img, ref, TOL, FLIP, ENERGY)
 
 
@@ -147,14 +149,21 @@ def test_tonemap_matches_reference(op):
 
 @pytest.mark.parametrize("case", ["phong", "env_on_miss", "debug_integrator"])
 def test_unported_features_raise(case):
-    scene = ttt.scenes.cornell_box(wall_bsdf=ttt.BSDFType.PHONG if case == "phong"
-                                   else ttt.BSDFType.DIFFUSE)
-    opts = ttt.RenderOptions(width=4, height=4, samples_per_pixel=1, bounces=1,
-                             env_on_miss=case == "env_on_miss",
-                             integrator=ttt.Integrator.DEBUG_DEPTH if case == "debug_integrator"
-                             else ttt.Integrator.DIRECT)
-    with pytest.raises(NotImplementedError):
-        ttt.render(scene, ttt.scenes.cornell_camera(), opts)
+    """The three features that raised NotImplementedError until the port
+    had them (Phong walls, the miss-env add, a debug integrator) now render
+    the reference's image within the twin budgets."""
+    jo, to = _opts(width=16, height=16, samples_per_pixel=4, bounces=2, subpixel_jitter=0.5,
+                   env_on_miss=case == "env_on_miss",
+                   integrator=tt.Integrator.DEBUG_DEPTH if case == "debug_integrator"
+                   else tt.Integrator.DIRECT)
+    wall = tt.BSDFType.PHONG if case == "phong" else tt.BSDFType.DIFFUSE
+    env = (0.3, 0.4, 0.5) if case == "env_on_miss" else (0.0, 0.0, 0.0)
+    ts = ttt.scenes.cornell_box(device="cpu", wall_bsdf=int(wall), env_value=env)
+    img = _port_image(ts, ttt.scenes.cornell_camera(device="cpu"), to, 3)
+    ref, _ = _reference(tt.scenes.cornell_box(wall_bsdf=wall, env_value=env),
+                        tt.scenes.cornell_camera(), jo, 3, with_mirror=False)
+    assert img.mean() > 0.0
+    _assert_twin_match(img, ref, TOL, FLIP_GGX if case == "phong" else FLIP, ENERGY)
 
 
 @pytest.mark.parametrize("split", ["bands", "chunks", "resume"])
@@ -163,7 +172,7 @@ def test_split_renders_match_whole_frame(split, monkeypatch):
     as one whole-frame render (pixel and sample ids stay global)."""
     # (``ttt.render`` is the function; the module holds the lane cap)
     render_mod = importlib.import_module("terra_tpu_torch.render")
-    scene, cam = ttt.scenes.cornell_box(), ttt.scenes.cornell_camera()
+    scene, cam = ttt.scenes.cornell_box(device="cpu"), ttt.scenes.cornell_camera(device="cpu")
     opts = ttt.RenderOptions(width=12, height=12, samples_per_pixel=8, bounces=2,
                              integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5)
     whole = ttt.render(scene, cam, opts, seed=4)

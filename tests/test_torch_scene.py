@@ -29,14 +29,15 @@ def flatten(obj):
 
 def _scenes(case):
     if case == "cornell_brute":
-        return tt.scenes.cornell_box(), ttt.scenes.cornell_box()
+        return tt.scenes.cornell_box(), ttt.scenes.cornell_box(device="cpu")
     if case == "cornell_bvh":
         return (tt.scenes.cornell_box(accelerator=tt.Accelerator.BVH),
-                ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH))
+                ttt.scenes.cornell_box(device="cpu", accelerator=ttt.Accelerator.BVH))
     if case == "cornell_ggx":
         return (tt.scenes.cornell_box(wall_bsdf=tt.BSDFType.GGX),
-                ttt.scenes.cornell_box(wall_bsdf=ttt.BSDFType.GGX))
-    return tt.scenes.courtyard(**SMALL_COURTYARD), ttt.scenes.courtyard(**SMALL_COURTYARD)
+                ttt.scenes.cornell_box(device="cpu", wall_bsdf=ttt.BSDFType.GGX))
+    return (tt.scenes.courtyard(**SMALL_COURTYARD),
+            ttt.scenes.courtyard(device="cpu", **SMALL_COURTYARD))
 
 
 def _eq(got, ref):
@@ -70,7 +71,7 @@ def test_commit_matches_reference(case):
 def test_sah_build_matches_reference(case, leaf_size):
     if case == "random":
         js = tt.scenes.random_triangles(3000, seed=leaf_size)
-        ts = ttt.scenes.random_triangles(3000, seed=leaf_size)
+        ts = ttt.scenes.random_triangles(3000, device="cpu", seed=leaf_size)
     else:
         js, ts = _scenes(case)
     jb = jlbvh.build(js.geometry, leaf_size=leaf_size)
@@ -97,8 +98,8 @@ def _assert_tree_equal(got, ref):
 def test_interop_round_trip(case):
     js, _ = _scenes(case)
     d = flatten(js)
-    scene = interop.scene_from_numpy(d)
+    scene = interop.scene_from_numpy(d, device="cpu")
     _assert_tree_equal(scene, d)
     assert scene.materials.types_present == js.materials.types_present
     cam = tt.scenes.courtyard_camera()
-    _assert_tree_equal(interop.camera_from_numpy(flatten(cam)), flatten(cam))
+    _assert_tree_equal(interop.camera_from_numpy(flatten(cam), device="cpu"), flatten(cam))

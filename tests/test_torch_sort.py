@@ -27,7 +27,7 @@ def _twins(name):
         js = tt.scenes.random_triangles(3000, seed=3, accelerator=tt.Accelerator.BVH)
     else:
         js = tt.scenes.courtyard(**SMALL_COURTYARD, accelerator=tt.Accelerator.BVH)
-    return js, interop.scene_from_numpy(flatten(js))
+    return js, interop.scene_from_numpy(flatten(js), device="cpu")
 
 
 def _rays(js, seed, n=N):
@@ -123,8 +123,8 @@ def test_small_batches_are_not_sorted(monkeypatch):
 def test_render_sorted_equals_unsorted(monkeypatch):
     """The render sorts every raycast by parent-hit keys; the image is the
     unsorted render's bit for bit."""
-    scene = ttt.scenes.courtyard(**SMALL_COURTYARD)
-    cam = ttt.scenes.courtyard_camera()
+    scene = ttt.scenes.courtyard(device="cpu", **SMALL_COURTYARD)
+    cam = ttt.scenes.courtyard_camera(device="cpu")
     opts = ttt.RenderOptions(width=32, height=32, samples_per_pixel=2, bounces=2,
                              integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5)
     hinted = []

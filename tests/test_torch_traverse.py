@@ -24,7 +24,7 @@ def _rays(seed, n=2048):
 
 def _scenes(tris):
     js = tt.scenes.random_triangles(tris, seed=tris, accelerator=tt.Accelerator.BVH)
-    ts = ttt.scenes.random_triangles(tris, seed=tris, accelerator=ttt.Accelerator.BVH)
+    ts = ttt.scenes.random_triangles(tris, device="cpu", seed=tris, accelerator=ttt.Accelerator.BVH)
     return js, ts
 
 
@@ -107,3 +107,28 @@ def test_wrapper_rejects_bad_inputs(case):
     with pytest.raises(exc):
         fn(*args)
     assert tpt.launches == before
+
+
+@pytest.mark.parametrize("arity", [2, 4])
+def test_counted_walk_marks_what_it_pops(arity):
+    """The plain walks' counters and touched-node marks (what the card's
+    least time is priced from) leave the result unchanged: every ray pops
+    at least the root, leaf tests are pops, and the touched ids are the
+    root plus nodes below it."""
+    _, ts = _scenes(700)
+    o, d = (torch.as_tensor(v) for v in _rays(5))
+    corners = ts.geometry.corners()
+    if arity == 2:
+        tables = tpt.pack_tables(ts.bvh, *corners)
+        walk, n_ids, inner = tpt.raycast_plain, tables.nodes.shape[0], tables.ni
+    else:
+        tables = tpt.pack_tables_wide(ts.bvh, *corners, box_enc="f32")
+        walk, inner = tpt.raycast4_plain, tables.num_wide
+        n_ids = inner + tables.tri_id.shape[0] // tables.leaf_size
+    touched = torch.zeros(n_ids, dtype=torch.bool)
+    t, i, counts = walk(tables, o, d, count=True, touched=touched)
+    t0, i0 = walk(tables, o, d)
+    assert torch.equal(t, t0) and torch.equal(i, i0)
+    assert bool((counts[:, 0] >= 1).all()) and bool((counts[:, 1] <= counts[:, 0]).all())
+    assert bool(touched[0]) and 0 < int(touched[inner:].sum()) <= n_ids - inner
+    assert int(counts[:, 1].sum()) >= int(touched[inner:].sum())

@@ -23,7 +23,7 @@ from tests.test_torch_traverse import _rays
 
 def _twins(tris, seed):
     js = tt.scenes.random_triangles(tris, seed=seed, accelerator=tt.Accelerator.BVH)
-    return js, interop.scene_from_numpy(flatten(js))
+    return js, interop.scene_from_numpy(flatten(js), device="cpu")
 
 
 def _bits(x):
@@ -34,11 +34,11 @@ def _bits(x):
 def test_collapse4_matches_reference(case):
     if case == "courtyard":
         jg = tt.scenes.courtyard(**SMALL_COURTYARD).geometry
-        tg = ttt.scenes.courtyard(**SMALL_COURTYARD).geometry
+        tg = ttt.scenes.courtyard(device="cpu", **SMALL_COURTYARD).geometry
     else:
         n = int(case[6:])
         jg = tt.scenes.random_triangles(n, seed=n).geometry
-        tg = ttt.scenes.random_triangles(n, seed=n).geometry
+        tg = ttt.scenes.random_triangles(n, device="cpu", seed=n).geometry
     jb = jlbvh.build(jg, leaf_size=8)
     tb = tlbvh.build(tg, leaf_size=8)
     np.testing.assert_array_equal(tb.wide_child.numpy(), np.asarray(jb.wide_child))
@@ -50,7 +50,7 @@ def test_collapse4_matches_reference(case):
 def test_collapse4_ties_match_reference():
     """Equal areas everywhere: the first slot in list order wins, as in the
     reference."""
-    tb = tlbvh.build(ttt.scenes.random_triangles(700, seed=5).geometry, leaf_size=4)
+    tb = tlbvh.build(ttt.scenes.random_triangles(700, device="cpu", seed=5).geometry, leaf_size=4)
     left, right = tb.node_left.numpy(), tb.node_right.numpy()
     box_min = np.zeros_like(tb.node_min.numpy())
     box_max = np.ones_like(box_min)
@@ -206,7 +206,7 @@ def test_counted_matches_uncounted_and_decodes(kind):
 
 def test_interop_round_trips_wide_fields():
     js = tt.scenes.courtyard(**SMALL_COURTYARD, accelerator=tt.Accelerator.BVH)
-    bvh = interop.scene_from_numpy(flatten(js)).bvh
+    bvh = interop.scene_from_numpy(flatten(js), device="cpu").bvh
     np.testing.assert_array_equal(bvh.wide_child.numpy(), np.asarray(js.bvh.wide_child))
     np.testing.assert_array_equal(bvh.wide_src.numpy(), np.asarray(js.bvh.wide_src))
     assert (bvh.num_wide, bvh.wide_depth) == (js.bvh.num_wide, js.bvh.wide_depth)
@@ -217,7 +217,7 @@ def test_wide_mode_order(monkeypatch):
     """The reference's order of preference: f32 wide, binary, bf16 wide,
     paged, by the bytes each table needs (leaf 8, where the binary table
     is smaller than the f32 overlay)."""
-    ts = ttt.scenes.random_triangles(3000, seed=3, accelerator=ttt.Accelerator.BVH)
+    ts = ttt.scenes.random_triangles(3000, device="cpu", seed=3, accelerator=ttt.Accelerator.BVH)
     bvh = ts.bvh
     f32 = bvh.num_wide * tpt.WIDE_F32_NODE_BYTES
     binary = tpt._binary_bytes(bvh)
