@@ -9,9 +9,10 @@ exits non-zero (there is no CPU fallback):
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   1. build both CUDA traversal kernels and the pattern-probe kernels (nvcc,
      sm_90a) and the native SAH builder (g++) from the sources in this
-     checkout, all at once, timed; the ptxas summary of each library, and
-     the SASS of every probe kernel (``cuobjdump -sass``) checked for the
-     TMA bulk copy (UBLKCP) and the mbarrier wait (SYNCS.PHASECHK);
+     checkout, all at once, timed; each kernel instance's ptxas footprint
+     (registers, stack frame, spills, static shared memory), and the SASS
+     of every probe kernel (``cuobjdump -sass``) checked for the TMA bulk
+     copy (UBLKCP) and the mbarrier wait (SYNCS.PHASECHK);
   2. binary-kernel gate on the 241,764-triangle courtyard: the kernel
      against its plain PyTorch version on the card (2^20 camera rays, 2^18
      uniform random rays, 2^18 occlusion rays with t_max, plus
@@ -29,6 +30,17 @@ exits non-zero (there is no CPU fallback):
      nodes, single leaves, or root 0) and aimed into its subtree's box,
      without and with ``t_max`` seeds on half of them; the kernel against
      the plain walk, 0 differing words, with both times;
+  2c. the traversal kernels on the batches the renders send them: one 3b
+     render and one 3g render with ``pallas_traverse.traverse_packed``
+     wrapped, keeping the sorted (o, d, t_max, any_hit) of a mid-render
+     closest-hit and NEE shadow batch of 3b (147,456 lanes) and a
+     closest-hit batch of 3g (262,144 lanes); on each, the BVH4 kernel on
+     the render's f32 tables (and on the 3b batches the binary kernel on
+     the same tree): 0 differing words against the plain walk (the counted
+     BVH4 kernel's per-ray pops and leaf tests included), the time (CUDA
+     events, mean of 50 after a warm-up), the bound of these rays, the
+     ratio, the counters, and the instance's registers, stack frame, shared
+     memory and blocks per SM (``pallas_traverse.occupancy``);
   3. the production courtyard render (config 3b: 384x384, 8 spp, 2
      bounces, DIRECT, persistent lanes of 8; every raycast sorted by the
      reference's parent-hit keys), with the table kind ``pack_tables_auto``
@@ -73,8 +85,10 @@ compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
 object describing the kernels (with each one's least time on the card,
 ``bound_ms``: the larger of the bytes its run needs over 3.35 TB/s and its
-operations over the 67 TFLOP/s f32 peak), the ``nvidia-smi`` line, and
-then ``{"ok": true, "device": {...}}``.
+operations over the 67 TFLOP/s f32 peak; the traversal kernels add
+``main_path_ms``, ``main_path_bound_ms``, ``stack_frame_bytes``,
+``smem_per_block`` and ``blocks_per_sm`` from phase 2c), the
+``nvidia-smi`` line, and then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -101,6 +115,9 @@ RAY_BYTES = 32             # o, d in (24 B), t, tri out (8 B)
 # test, counted from the kernels' code (subtractions, products, min/max,
 # compares); bytes of one leaf slot (9 f32 corners + an i32 id).
 BOX_OPS, TRI_OPS, TRI_SLOT_BYTES = 22, 45, 40
+# An inner pop of the binary walk reads two links (8 B) and both children's
+# boxes (2 x 32 B) and makes two box tests.
+BIN_NODE_BYTES = 8 + 2 * 32
 # Twin budgets (tol, flip, energy) of tests/test_golden.py::_assert_twin_match
 # as the reference tests set them.
 GOLDEN = (2e-3, 8e-3, 5e-3)
@@ -113,13 +130,19 @@ def _smi() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def _ms(torch, fn, reps: int, warm_up: bool = True) -> float:
+def _ms(torch, fn, reps: int, warm_up: bool = True, backlog: bool = False) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
-    after one warm-up run (``warm_up=False``: the caller has just run it)."""
+    after one warm-up run (``warm_up=False``: the caller has just run it).
+    With ``backlog`` the stream first gets a sleep kernel longer than the
+    host takes to enqueue the runs (``torch.cuda._sleep``, ~10 ms), so a
+    kernel shorter than its wrapper's host cost is timed back to back on
+    the device, not at the host's launch rate."""
     if warm_up:
         fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if backlog:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -172,28 +195,40 @@ def _bound(nbytes: float, ops: float) -> tuple:
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def _walk_bound(torch, walk, n_inner, n_ids, n_rays, node_bytes, box_tests, leaf_size):
-    """Least time of a BVH walk on these rays: ``walk(touched)`` runs the
+def _walk_bound(torch, pt, tables, walk, n_inner, n_rays, node_bytes, box_tests):
+    """Least time of a BVH walk on these rays: ``walk(visits)`` runs the
     plain walk (which pops what the kernel pops) with per-ray counters and
-    marks every popped id (``n_ids`` of them, inner nodes first). Bytes:
-    the rays in and out, and each node and leaf the rays touch read once (an inner node's ``node_bytes``, a leaf's
-    ``leaf_size`` triangle slots); operations: every pop's ``box_tests``
-    slab tests and every leaf test's triangle tests. Also returns the bytes
-    the pops would move if nothing were reused (the counters times the
-    row sizes) and the counter totals."""
-    touched = torch.zeros(n_ids, dtype=torch.bool, device="cuda")
-    counts = walk(touched)[2].sum(dim=0)
+    adds each pop to ``visits`` at the popped id (inner nodes first, then
+    the leaves). Bytes: the rays in and out, each node the rays touch read
+    once (``node_bytes``) and the real triangle slots of each leaf they
+    touch; operations: every inner pop's ``box_tests`` slab tests and, per
+    leaf test, that leaf's real triangles (the kernels stop at the
+    padding). Operations are priced at 67 TFLOP/s, which counts an FMA as
+    two operations; the kernels are built with -fmad=false for bit-exact
+    results, so they cannot reach it. Also prints the bound that counts
+    every padded slot and the bytes the pops would move if nothing were
+    reused. Returns ((ms, what bounds it), the walk's result)."""
+    real = pt.leaf_real_counts(tables)
+    visits = torch.zeros(n_inner + real.shape[0], dtype=torch.int32, device=real.device)
+    res = walk(visits)
+    counts = res[2].sum(dim=0)
     pops, leaves = int(counts[0]), int(counts[1])
-    inner_t, leaf_t = int(touched[:n_inner].sum()), int(touched[n_inner:].sum())
-    slot = leaf_size * TRI_SLOT_BYTES
-    bound = _bound(n_rays * RAY_BYTES + inner_t * node_bytes + leaf_t * slot,
-                   (pops - leaves) * box_tests * BOX_OPS + leaves * leaf_size * TRI_OPS)
-    no_reuse = n_rays * RAY_BYTES + (pops - leaves) * node_bytes + leaves * slot
-    print(f"  counters: pops {pops} leaf tests {leaves}; touched {inner_t} inner nodes and "
-          f"{leaf_t} leaves; bound {bound[0]:.4f} ms ({bound[1]}); the pops' bytes without "
-          f"reuse {no_reuse / 2**20:.1f} MiB ({no_reuse / HBM_BYTES_PER_S * 1e3:.4f} ms)",
-          flush=True)
-    return bound
+    lv = visits[n_inner:].long()
+    inner_t, leaf_t = int((visits[:n_inner] > 0).sum()), int((lv > 0).sum())
+    tri_tests, tri_touched = int((lv * real).sum()), int(real[lv > 0].sum())
+    box_ops = (pops - leaves) * box_tests * BOX_OPS
+    bound = _bound(n_rays * RAY_BYTES + inner_t * node_bytes + tri_touched * TRI_SLOT_BYTES,
+                   box_ops + tri_tests * TRI_OPS)
+    padded = _bound(n_rays * RAY_BYTES + inner_t * node_bytes
+                    + leaf_t * tables.leaf_size * TRI_SLOT_BYTES,
+                    box_ops + leaves * tables.leaf_size * TRI_OPS)
+    no_reuse = n_rays * RAY_BYTES + (pops - leaves) * node_bytes + tri_tests * TRI_SLOT_BYTES
+    print(f"  counters: pops {pops} leaf tests {leaves} real triangle tests {tri_tests} (padded "
+          f"slots {leaves * tables.leaf_size}); touched {inner_t} inner nodes and {leaf_t} "
+          f"leaves; bound {bound[0]:.4f} ms ({bound[1]}; every padded slot: {padded[0]:.4f} ms); "
+          f"the pops' bytes without reuse {no_reuse / 2**20:.1f} MiB "
+          f"({no_reuse / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    return bound, res
 
 
 def _sass_check(probes, path):
@@ -218,13 +253,48 @@ def _sass_check(probes, path):
     return found
 
 
-def _ptxas_summary(log: str):
-    """The distinct ptxas register / stack / spill lines of a build, each
-    with the number of kernels it describes."""
-    lines = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "stack frame" in ln]
-    for line, k in sorted(collections.Counter(lines).items()):
-        print(f"  ptxas (x{k}): {line}", flush=True)
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier of a mangled nested name (``_ZN``, then
+    each name preceded by its length), or the name itself."""
+    pos = 3 if mangled.startswith("_ZN") else len(mangled)
+    while m := re.match(r"\d+", mangled[pos:]):
+        pos += m.end()
+        ident = mangled[pos:pos + int(m.group(0))]
+        if ident.endswith("_kernel"):
+            return ident
+        pos += len(ident)
+    return mangled
+
+
+def _footprints(log: str) -> dict:
+    """{instance: (registers, stack frame B, spill stores B, spill loads B,
+    static shared memory B)} of every kernel in a ``ptxas -v`` log; an
+    instance is the kernel's name and its template arguments."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for ln in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            name, frame = m.group(1), (0, 0, 0)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", ln):
+            frame = tuple(int(x) for x in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            args = re.search(r"kernelI((?:L[ib]\d+E)+)E", name)
+            targs = ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) if args else ""
+            label = _kernel_name(name) + (f"<{targs}>" if args else "")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[label] = (int(m.group(1)), *frame, int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+def _print_footprints(lib: str, log: str, params: str) -> dict:
+    """Prints each instance's ptxas footprint; returns the footprints."""
+    fp = _footprints(log)
+    print(f"  {lib}: {len(fp)} kernel instances ({params})", flush=True)
+    for label, (regs, frame, st, ld, smem) in sorted(fp.items()):
+        print(f"    {label}: {regs} registers, stack frame {frame} B, spill stores {st} B, "
+              f"spill loads {ld} B, static smem {smem} B", flush=True)
+    return fp
 
 
 def _camera_rays(torch, cam, side, dev):
@@ -363,10 +433,9 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
             if name.startswith("camera"):  # the least time of this walk
                 node_bytes = (pt.WIDE_BF16_NODE_BYTES if tab.box_enc == "bf16"
                               else pt.WIDE_F32_NODE_BYTES)
-                b = _walk_bound(torch, lambda touched: pt.raycast4_plain(
-                    tab, o, d, tm, any_hit, algo, count=True, touched=touched),
-                    tab.num_wide, tab.num_wide + tab.tri_id.shape[0] // tab.leaf_size,
-                    o.shape[0], node_bytes, 4, tab.leaf_size)
+                b, _ = _walk_bound(torch, pt, tab, lambda visits: pt.raycast4_plain(
+                    tab, o, d, tm, any_hit, algo, count=True, visits=visits),
+                    tab.num_wide, o.shape[0], node_bytes, 4)
                 out[mode].update(bound_ms=b[0], bound_by=b[1])
             pages = 0 < tab.s_resident < tab.num_wide
             if not same or bool(c["paged"].sum() > 0) != pages:
@@ -434,6 +503,83 @@ def _start_gate(torch, pt, scene, label, dev, seed):
             if tm is not None:
                 out[kind] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
     return out
+
+
+def _capture(torch, ttt, pt, scene, cam, opts, kinds):
+    """Renders once with ``pt.traverse_packed`` wrapped and returns, for
+    each kind in ``kinds`` ("closest" or "shadow", the any-hit NEE rays),
+    the middle one of the batches of that kind the render handed it, as
+    (tables, o, d, t_max, any_hit, algo): full wavefronts, sorted by the
+    render's keys, dead lanes masked to the miss ray."""
+    seen = {k: [] for k in kinds}
+    real = pt.traverse_packed
+
+    def spy(tables, o, d, t_max=None, any_hit=False, algo="mt", count_steps=False, start=None):
+        kind = "shadow" if any_hit else "closest"
+        if kind in seen:
+            seen[kind].append((tables, o.clone(), d.clone(),
+                               None if t_max is None else t_max.clone(), any_hit, algo))
+        return real(tables, o, d, t_max, any_hit, algo, count_steps, start)
+
+    with mock.patch.object(pt, "traverse_packed", spy):
+        ttt.render(scene, cam, opts, seed=0)
+    torch.cuda.synchronize()
+    return {k: v[len(v) // 2] for k, v in seen.items()}
+
+
+def _main_path_phase(torch, pt, batches, binary, footprint):
+    """Phase 2c: each traversal kernel of the tree on the batches the
+    renders send it. Per batch and kernel: words against the plain walk
+    (0 expected; the BVH4 kernel counted, so its per-ray pops and leaf
+    tests are held too), the kernel's time (CUDA events, mean of 50 after
+    a warm-up, queued behind a sleep kernel so that the device runs them
+    back to back), the bound of these rays, the ratio, the counters, and the
+    instance's registers, stack frame, shared memory and blocks per SM.
+    ``binary`` maps batch labels to the binary tables of the same tree.
+    Returns {kernel: {batch: row}}."""
+    from terra_tpu_torch.intersect import MISS_ORIGIN, T_FAR
+
+    rows = {"bvh4_traverse": {}, "bvh_traverse": {}}
+    for label, (tab, o, d, tm, any_hit, algo) in batches.items():
+        walks = [("bvh4_traverse", tab, 4, pt.raycast4_cuda, pt.raycast4_plain, tab.num_wide,
+                  pt.WIDE_BF16_NODE_BYTES if tab.box_enc == "bf16" else pt.WIDE_F32_NODE_BYTES)]
+        if label in binary:
+            b = binary[label]
+            walks.append(("bvh_traverse", b, 2, pt.raycast_cuda, pt.raycast_plain, b.ni,
+                          BIN_NODE_BYTES))
+        live = int((o[:, 1] < MISS_ORIGIN / 2).sum())  # dead lanes start at MISS_ORIGIN
+        for name, t, arity, kfn, pfn, n_inner, node_bytes in walks:
+            count = dict(count=True) if arity == 4 else {}
+            k = kfn(t, o, d, tm, any_hit, algo, **count)
+            print(f"phase 2c: {name} on the {label} batch ({o.shape[0]} lanes, {live} live, "
+                  f"table kind {getattr(t, 'mode', 'binary')}, any_hit {any_hit}, t_max "
+                  f"{tm is not None}):", flush=True)
+            (bound, by), p = _walk_bound(
+                torch, pt, t, lambda v: pfn(t, o, d, tm, any_hit, algo, count=True, visits=v),
+                n_inner, o.shape[0], node_bytes, arity)
+            words = sum(int((a != b).sum()) for a, b in zip(k, p if arity == 4 else p[:2]))
+            ms = _ms(torch, lambda: kfn(t, o, d, tm, any_hit, algo), 50, backlog=True)
+            blocks, dyn = pt.occupancy(t, tm is not None, any_hit, algo)
+            inst = ("bvh4_traverse_kernel<{},{},{},{},{},0>".format(
+                int(algo != "mt"), int(tm is not None), int(any_hit), int(t.box_enc == "bf16"),
+                int(t.s_resident > 0)) if arity == 4 else "bvh_traverse_kernel<{},{},{}>".format(
+                int(algo != "mt"), int(tm is not None), int(any_hit)))
+            regs, frame, st, ld, smem = footprint[name].get(inst, (-1, -1, -1, -1, 0))
+            hits = int((k[0] < (T_FAR if tm is None else tm)).sum())
+            print(f"  {name} {label}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), ratio "
+                  f"{ms / bound:.2f}; hits {hits}; words differing from the plain walk"
+                  f"{' (t, id, pops, leaf tests, paged)' if arity == 4 else ''} {words}; "
+                  f"{inst}: {regs} registers, stack frame {frame} B, spills {st}/{ld} B, "
+                  f"shared memory {smem + dyn} B per block ({dyn} B dynamic), {blocks} blocks "
+                  f"per SM", flush=True)
+            if words:
+                raise AssertionError(f"{name} differs from its plain walk on the {label} batch")
+            c = p[2].sum(dim=0)
+            rows[name][label] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                                 "pops": int(c[0]), "leaf_tests": int(c[1]),
+                                 "stack_frame_bytes": frame, "smem_per_block": smem + dyn,
+                                 "blocks_per_sm": blocks}
+    return rows
 
 
 def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
@@ -655,10 +801,12 @@ def main() -> None:
           f"bvh4_traverse (nvcc sm_90a) in {build_s['bvh4_traverse']:.2f} s, "
           f"pattern_probes (nvcc sm_90a) in {build_s['pattern_probes']:.2f} s, "
           f"terra_native (g++) in {build_s['terra_native']:.2f} s, in parallel", flush=True)
-    for name, path in (("bvh_traverse", pt.kernel_path()), ("bvh4_traverse", pt.kernel4_path()),
-                       ("pattern_probes", probes.kernel_path())):
-        print(f"  {name}:", flush=True)
-        _ptxas_summary(_build.build_log(path))
+    footprint = {
+        name: _print_footprints(name, _build.build_log(path), params)
+        for name, path, params in (
+            ("bvh_traverse", pt.kernel_path(), "ALGO, HAS_TMAX, ANY_HIT"),
+            ("bvh4_traverse", pt.kernel4_path(), "ALGO, HAS_TMAX, ANY_HIT, ENC, PAGED, COUNT"),
+            ("pattern_probes", probes.kernel_path(), "one per site"))}
     _sass_check(probes, probes.kernel_path())
 
     # 2. binary-kernel gate on the full courtyard
@@ -689,12 +837,11 @@ def main() -> None:
         print(f"  {name}: kernel {kernel_ms:.3f} ms ({o.shape[0] / kernel_ms / 1e3:.1f} Mrays/s), "
               f"plain {plain_ms:.3f} ms ({o.shape[0] / plain_ms / 1e3:.2f} Mrays/s)", flush=True)
 
-    # the camera batch's least time: an inner pop reads two links (8 B) and
-    # both children's boxes (2 x 32 B) and makes two box tests
     print("  camera 2^20 (binary):", flush=True)
-    bin_bound = _walk_bound(
-        torch, lambda touched: pt.raycast_plain(tables, o_cam, d_cam, count=True, touched=touched),
-        tables.ni, tables.nodes.shape[0], o_cam.shape[0], 8 + 2 * 32, 2, bvh.leaf_size)
+    bin_bound, _ = _walk_bound(
+        torch, pt, tables,
+        lambda visits: pt.raycast_plain(tables, o_cam, d_cam, count=True, visits=visits),
+        tables.ni, o_cam.shape[0], BIN_NODE_BYTES, 2)
 
     hk = pt.raycast(scene, o_cam[:N_CHECK], d_cam[:N_CHECK], tables=tables)
     hb = intersect.raycast_brute(o_cam[:N_CHECK], d_cam[:N_CHECK], *scene.geometry.corners())
@@ -729,11 +876,33 @@ def main() -> None:
             if kind != "binary":
                 gate4[label][f"start_links/{kind}"] = v
 
-    # 3. the production courtyard render (config 3b)
-    main_launches = collections.Counter()
+    # 2c. the traversal kernels on the batches the renders send them:
+    # config 3b (below) and config 3g (the full-material render at bench
+    # config 2's width, bench.py:202-219, spp cut from 256 to 16)
     opts = ttt.RenderOptions(width=384, height=384, samples_per_pixel=8, bounces=2,
                              integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
                              samples_per_lane=8)
+    g_scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH,
+                                     wall_bsdf=ttt.BSDFType.PHONG,
+                                     block_bsdf=ttt.BSDFType.GLASS, device=dev)
+    g_cam = ttt.scenes.cornell_camera(device=dev)
+    g_opts = ttt.RenderOptions(width=512, height=512, samples_per_pixel=16, bounces=4,
+                               integrator=ttt.Integrator.DIRECT_MIS, subpixel_jitter=0.5,
+                               samples_per_launch=16, samples_per_lane=16)
+    t0 = time.perf_counter()
+    cap = _capture(torch, ttt, pt, scene, cam, opts, ("closest", "shadow"))
+    batches = {"3b closest-hit": cap["closest"], "3b shadow": cap["shadow"],
+               "3g closest-hit": _capture(torch, ttt, pt, g_scene, g_cam, g_opts,
+                                          ("closest",))["closest"]}
+    print(f"phase 2c: captured the mid-render batches of one 3b and one 3g render in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    bin_3b = pt.pack_tables(bvh, *scene.geometry.corners())
+    main_rows = _main_path_phase(torch, pt, batches,
+                                 {"3b closest-hit": bin_3b, "3b shadow": bin_3b}, footprint)
+    del cap, batches
+
+    # 3. the production courtyard render (config 3b)
+    main_launches = collections.Counter()
     print("phase 3: config 3b", flush=True)
     _, l2, l4 = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
     main_launches.update(binary=l2, bvh4=l4)
@@ -782,14 +951,8 @@ def main() -> None:
     # 3g. the full-material render at bench config 2's width (bench.py:202-219,
     # spp cut from 256 to 16), then the courtyard under a constant sky
     print("phase 3g: config 3g (Cornell box, Phong walls, glass block)", flush=True)
-    g_scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH,
-                                     wall_bsdf=ttt.BSDFType.PHONG,
-                                     block_bsdf=ttt.BSDFType.GLASS, device=dev)
-    g_opts = ttt.RenderOptions(width=512, height=512, samples_per_pixel=16, bounces=4,
-                               integrator=ttt.Integrator.DIRECT_MIS, subpixel_jitter=0.5,
-                               samples_per_launch=16, samples_per_lane=16)
-    _, l2, l4 = _render(torch, ttt, pt, g_scene, ttt.scenes.cornell_camera(device=dev), g_opts,
-                        "cornell_3g", check_unsorted=False)
+    _, l2, l4 = _render(torch, ttt, pt, g_scene, g_cam, g_opts, "cornell_3g",
+                        check_unsorted=False)
     main_launches.update(binary=l2, bvh4=l4)
     sky = dataclasses.replace(scene, env_value=torch.tensor([0.5, 0.6, 0.8], device=dev))
     s_opts = opts.replace(integrator=ttt.Integrator.DIRECT_MIS, env_on_miss=True, env_nee=True)
@@ -842,13 +1005,23 @@ def main() -> None:
     k_ms, p_ms = times["camera 2^20 closest-hit mt"]
     m4 = gate4["courtyard 1M"]["bf16"]
     walks = "no single PyTorch call walks a BVH"
+
+    def main_path(name):
+        """The phase-2c keys of one traversal kernel, per batch."""
+        r = main_rows[name]
+        return {"main_path_ms": {b: v["ms"] for b, v in r.items()},
+                "main_path_bound_ms": {b: v["bound_ms"] for b, v in r.items()},
+                "stack_frame_bytes": max(fp[1] for fp in footprint[name].values()),
+                "smem_per_block": {b: v["smem_per_block"] for b, v in r.items()},
+                "blocks_per_sm": {b: v["blocks_per_sm"] for b, v in r.items()}}
+
     kernels = [
         {"name": "bvh_traverse", "route": "cuda",
          "source": "terra_tpu_torch/csrc/bvh_traverse.cu",
          "replaces": "terra_tpu/accel/pallas_traverse.py:81",
          "launches": main_launches["binary"], "max_abs_err": max_err,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": bin_bound[0], "bound_by": bin_bound[1],
-         "library_ms": None, "library": walks,
+         "library_ms": None, "library": walks, **main_path("bvh_traverse"),
          "modes": {f"{label}/start_links": g["binary"] for label, g in starts.items()}},
         {"name": "bvh4_traverse", "route": "cuda",
          "source": "terra_tpu_torch/csrc/bvh4_traverse.cu",
@@ -856,7 +1029,7 @@ def main() -> None:
          "launches": main_launches["bvh4"], "max_abs_err": max_err4,
          "ms": m4["ms"], "plain_ms": m4["plain_ms"], "bound_ms": m4["bound_ms"],
          "bound_by": m4["bound_by"],
-         "library_ms": None, "library": walks,
+         "library_ms": None, "library": walks, **main_path("bvh4_traverse"),
          "modes": {f"{label}/{mode}": v for label, g in gate4.items() for mode, v in g.items()}},
     ]
     for name, row in probe_rows.items():

@@ -47,7 +47,8 @@ from .traverse import sort_order
 __all__ = ["Tables", "WideTables", "pack_tables", "pack_tables_wide", "pack_tables_paged",
            "pack_tables_auto", "paged_resident", "wide_mode", "use_wide", "raycast",
            "raycast_plain", "raycast_cuda", "raycast4_plain", "raycast4_cuda",
-           "traverse_packed", "count_decode", "load_kernel", "load_kernel4", "launches",
+           "traverse_packed", "count_decode", "leaf_real_counts", "load_kernel", "load_kernel4",
+           "occupancy", "launches",
            "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "PACKET"]
 
 # Per-thread stack entries. The ordered binary DFS holds at most depth + 2
@@ -103,17 +104,26 @@ class Tables:
 
     nodes  : (ni + C, 8) f32 boxes [minx miny minz maxx maxy maxz 0 0]
     links  : (max(ni, 1), 2) i32 child ids (unified id space)
-    tris   : (C * leaf_size, 9) f32 corners a, b, c of every leaf slot
-    tri_id : (C * leaf_size,) i32 triangle id of every leaf slot
+    slots  : (C * leaf_size, 10) f32 leaf slots, one 40-byte row each: the
+             corners a, b, c, then the triangle id's i32 bits
     """
 
     nodes: torch.Tensor
     links: torch.Tensor
-    tris: torch.Tensor
-    tri_id: torch.Tensor
+    slots: torch.Tensor
     ni: int
     leaf_size: int
     depth: int
+
+    @property
+    def tris(self) -> torch.Tensor:
+        """(C * leaf_size, 9) f32 corners a, b, c of every leaf slot (a view)."""
+        return self.slots[:, :9]
+
+    @property
+    def tri_id(self) -> torch.Tensor:
+        """(C * leaf_size,) i32 triangle id of every leaf slot (a view)."""
+        return self.slots.view(torch.int32)[:, 9]
 
 
 def pack_tables(bvh, tri_a, tri_b, tri_c) -> Tables:
@@ -130,16 +140,19 @@ def pack_tables(bvh, tri_a, tri_b, tri_c) -> Tables:
         links = torch.stack([bvh.node_left, bvh.node_right], dim=1).to(torch.int32)
     else:
         links = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    tris, tri_id = _pack_tris(bvh, tri_a, tri_b, tri_c)
-    return Tables(nodes=nodes.contiguous(), links=links.contiguous(), tris=tris, tri_id=tri_id,
-                  ni=ni, leaf_size=bvh.leaf_size, depth=bvh.depth)
+    return Tables(nodes=nodes.contiguous(), links=links.contiguous(),
+                  slots=_pack_slots(bvh, tri_a, tri_b, tri_c), ni=ni, leaf_size=bvh.leaf_size,
+                  depth=bvh.depth)
 
 
-def _pack_tris(bvh, tri_a, tri_b, tri_c):
-    """(C * leaf_size, 9) corners and (C * leaf_size,) ids of every leaf slot."""
+def _pack_slots(bvh, tri_a, tri_b, tri_c):
+    """(C * leaf_size, 10) f32 rows of every leaf slot: its triangle's
+    corners and the id's i32 bits. One 40-byte row holds what a slot test
+    reads, as five 8-byte loads; the corners are the same floats as the
+    reference's ``(C * leaf_size, 10)`` table, whose id column is a float."""
     slot = bvh.leaf_tri.reshape(-1).long()
-    tris = torch.cat([tri_a[slot], tri_b[slot], tri_c[slot]], dim=1)
-    return tris.contiguous(), slot.to(torch.int32).contiguous()
+    ids = slot.to(torch.int32)[:, None].view(torch.float32)
+    return torch.cat([tri_a[slot], tri_b[slot], tri_c[slot], ids], dim=1).contiguous()
 
 
 def _check_stack(tables: Tables):
@@ -207,6 +220,16 @@ def _slab(box, o, inv, best_t):
     return torch.where(hit, tmin, T_FAR)
 
 
+def leaf_real_counts(tables):
+    """(C,) i64 real triangles of each leaf: its slots up to the first one
+    whose id equals the previous slot's. A leaf's slots are its distinct
+    triangles followed by repeats of the last one (``leaf_tri``'s
+    padding); a repeat gives the same t and id as the slot before it and
+    can never win a leaf test."""
+    ids = tables.tri_id.reshape(-1, tables.leaf_size)
+    return 1 + (ids[:, 1:] != ids[:, :-1]).to(torch.int64).cumprod(dim=1).sum(dim=1)
+
+
 def _leaf(tables, isect, rays, leaf, o, d, best_t, best_i, any_hit):
     """Dense test of one leaf per ray (``rays`` indexes the batch); updates
     best_t/best_i in place and returns the mask of rays it improved."""
@@ -231,14 +254,14 @@ def _leaf(tables, isect, rays, leaf, o, d, best_t, best_i, any_hit):
 
 
 def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",
-                  start=None, count: bool = False, touched=None):
+                  start=None, count: bool = False, visits=None):
     """Plain PyTorch traversal with the kernel's rules and visit order:
     every live ray pops one node per step. ``start``: optional (N,) i32
     start links (an internal id, or ni + leaf id; a single-leaf tree
     ignores them). Returns (best_t, best_i), and with ``count`` also the
     (N, 2) i32 per-ray counts of pops and leaf tests, which the kernel's
-    walk shares. ``touched``: optional (ni + C,) bool tensor in which every
-    popped node id is set (the nodes the walk reads, each once)."""
+    walk shares. ``visits``: optional (ni + C,) i32 tensor to which every
+    pop adds 1 at the popped id."""
     _check_rays(o, d, t_max)
     _check_stack(tables)
     _check_start(start, o.shape[0], tables.nodes.shape[0])
@@ -255,8 +278,8 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
             zero = torch.zeros((n,), dtype=torch.int64, device=dev)
             _leaf(tables, isect, torch.arange(n, device=dev), zero, o, d, best_t, best_i, any_hit)
             counts[:] = 1
-            if touched is not None:
-                touched[0] = True
+            if visits is not None:
+                visits[0] += n
             return (best_t, best_i, counts) if count else (best_t, best_i)
         stack, sp = _seed_stack(n, start, dev)
         live = torch.arange(n, device=dev)
@@ -265,8 +288,8 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
             node = stack[live, top]
             sp[live] = top
             counts[live, 0] += 1
-            if touched is not None:
-                touched[node] = True
+            if visits is not None:
+                visits.index_add_(0, node, torch.ones_like(node, dtype=visits.dtype))
             is_leaf = node >= ni
             lr = live[is_leaf]
             if lr.numel():
@@ -313,7 +336,7 @@ class WideTables:
             empty slot)
     pboxes, plinks : paged tables only, the f32 boxes (W - S, 24) and links
             (W - S, 4) of wide nodes S..W-1; None for resident tables
-    tris, tri_id : as :class:`Tables`
+    slots : as :class:`Tables` (with its ``tris`` and ``tri_id`` views)
     s_resident : S, the rows of ``nodes`` (R == S) of paged tables; 0 for
             resident tables (R == W)
     """
@@ -322,13 +345,15 @@ class WideTables:
     links: torch.Tensor
     pboxes: torch.Tensor | None
     plinks: torch.Tensor | None
-    tris: torch.Tensor
-    tri_id: torch.Tensor
+    slots: torch.Tensor
     box_enc: str
     s_resident: int
     num_wide: int
     leaf_size: int
     wide_depth: int
+
+    tris = Tables.tris
+    tri_id = Tables.tri_id
 
     @property
     def mode(self) -> str:
@@ -404,9 +429,8 @@ def pack_tables_wide(bvh, tri_a, tri_b, tri_c, box_enc: str = "f32") -> WideTabl
     _check_wide(bvh)
     g, links = _wide_boxes_links(bvh)
     nodes = _encode(g, box_enc)
-    tris, tri_id = _pack_tris(bvh, tri_a, tri_b, tri_c)
-    return WideTables(nodes=nodes, links=links.contiguous(), pboxes=None,
-                      plinks=None, tris=tris, tri_id=tri_id, box_enc=box_enc, s_resident=0,
+    return WideTables(nodes=nodes, links=links.contiguous(), pboxes=None, plinks=None,
+                      slots=_pack_slots(bvh, tri_a, tri_b, tri_c), box_enc=box_enc, s_resident=0,
                       num_wide=bvh.num_wide, leaf_size=bvh.leaf_size,
                       wide_depth=bvh.wide_depth)
 
@@ -437,12 +461,12 @@ def pack_tables_paged(bvh, tri_a, tri_b, tri_c, resident_cap: int | None = None,
     s_res = paged_resident(w, resident_enc) if resident_cap is None else \
         max(1, min(w, resident_cap))
     nodes = _encode(g[:s_res], resident_enc)
-    tris, tri_id = _pack_tris(bvh, tri_a, tri_b, tri_c)
     return WideTables(nodes=nodes, links=links[:s_res].contiguous(),
                       pboxes=g[s_res:].reshape(-1, 24).contiguous(),
-                      plinks=links[s_res:].contiguous(), tris=tris, tri_id=tri_id,
-                      box_enc=resident_enc, s_resident=s_res, num_wide=w,
-                      leaf_size=bvh.leaf_size, wide_depth=bvh.wide_depth)
+                      plinks=links[s_res:].contiguous(),
+                      slots=_pack_slots(bvh, tri_a, tri_b, tri_c), box_enc=resident_enc,
+                      s_resident=s_res, num_wide=w, leaf_size=bvh.leaf_size,
+                      wide_depth=bvh.wide_depth)
 
 
 def _binary_bytes(bvh) -> int:
@@ -511,7 +535,7 @@ def _wide_nodes(tables: WideTables) -> int:
 
 
 def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
-                   algo: str = "mt", count: bool = False, start=None, touched=None):
+                   algo: str = "mt", count: bool = False, start=None, visits=None):
     """Plain PyTorch walk of the BVH4 overlay with the kernel's rules and
     visit order: every live ray pops one entry per step; a wide node tests
     its four child boxes, sorts the hits by entry t with the reference's
@@ -519,8 +543,8 @@ def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     optional (N,) i32 start links (a wide id, or num_wide + leaf id).
     Returns (best_t, best_i), and with ``count`` also the (N, 3) i32
     per-ray counts of pops, leaf tests and paged-node visits (nodes >= S).
-    ``touched``: optional (num_wide + C,) bool tensor in which every popped
-    id is set."""
+    ``visits``: optional (num_wide + C,) i32 tensor to which every pop adds
+    1 at the popped id."""
     _check_rays(o, d, t_max)
     _check_stack4(tables)
     _check_start(start, o.shape[0], _wide_nodes(tables))
@@ -541,8 +565,8 @@ def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
             node = stack[live, top]
             sp[live] = top
             counts[live, 0] += 1
-            if touched is not None:
-                touched[node] = True
+            if visits is not None:
+                visits.index_add_(0, node, torch.ones_like(node, dtype=visits.dtype))
             is_leaf = node >= w
             lr = live[is_leaf]
             if lr.numel():
@@ -598,8 +622,10 @@ def load_kernel() -> ctypes.CDLL:
     lib = ctypes.CDLL(kernel_path())
     p = ctypes.c_void_p
     lib.terra_bvh_raycast.restype = ctypes.c_int
-    lib.terra_bvh_raycast.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p]
+    lib.terra_bvh_raycast.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64] + \
+        [ctypes.c_int] * 4 + [p, p, p]
+    lib.terra_bvh_query.restype = ctypes.c_int
+    lib.terra_bvh_query.argtypes = [ctypes.c_int] * 3 + [p]
     return lib
 
 
@@ -614,8 +640,9 @@ def load_kernel4() -> ctypes.CDLL:
     lib = ctypes.CDLL(kernel4_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.terra_bvh4_raycast.restype = ctypes.c_int
-    lib.terra_bvh4_raycast.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int64, i, i, i,
-                                       i, i, i, p, p, p, p]
+    lib.terra_bvh4_raycast.argtypes = [p] * 9 + [ctypes.c_int64] + [i] * 6 + [p] * 4
+    lib.terra_bvh4_query.restype = ctypes.c_int
+    lib.terra_bvh4_query.argtypes = [i] * 6 + [p]
     return lib
 
 
@@ -649,7 +676,7 @@ def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: 
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
         raise ValueError(f"unknown intersector {algo!r}")
-    ins = [o, d, tables.nodes, tables.links, tables.tris, tables.tri_id]
+    ins = [o, d, tables.nodes, tables.links, tables.slots]
     ins += [x for x in (t_max, start) if x is not None]
     dev = _check_cuda(ins, "raycast_cuda")
     _check_stack(tables)
@@ -661,9 +688,8 @@ def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: 
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.terra_bvh_raycast(
         o.data_ptr(), d.data_ptr(), _ptr(t_max), _ptr(start), tables.nodes.data_ptr(),
-        tables.links.data_ptr(), tables.tris.data_ptr(), tables.tri_id.data_ptr(), n,
-        tables.ni, tables.leaf_size, _ALGOS[algo],
-        int(any_hit), best_t.data_ptr(), best_i.data_ptr(), stream)
+        tables.links.data_ptr(), tables.slots.data_ptr(), n, tables.ni, tables.leaf_size,
+        _ALGOS[algo], int(any_hit), best_t.data_ptr(), best_i.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"bvh_traverse launch failed: cudaError {rc}")
     launches += 1
@@ -680,7 +706,7 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
         raise ValueError(f"unknown intersector {algo!r}")
-    ins = [o, d, tables.nodes, tables.links, tables.tris, tables.tri_id]
+    ins = [o, d, tables.nodes, tables.links, tables.slots]
     if tables.s_resident:
         ins += [tables.pboxes, tables.plinks]
     ins += [x for x in (t_max, start) if x is not None]
@@ -701,13 +727,31 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     rc = lib.terra_bvh4_raycast(
         o.data_ptr(), d.data_ptr(), _ptr(t_max), _ptr(start), tables.nodes.data_ptr(),
         tables.links.data_ptr(), _ptr(tables.pboxes), _ptr(tables.plinks),
-        tables.tris.data_ptr(), tables.tri_id.data_ptr(), n, tables.num_wide,
-        tables.s_resident, tables.leaf_size, int(tables.box_enc == "bf16"), _ALGOS[algo],
+        tables.slots.data_ptr(), n, tables.num_wide, tables.s_resident, tables.leaf_size,
+        int(tables.box_enc == "bf16"), _ALGOS[algo],
         int(any_hit), best_t.data_ptr(), best_i.data_ptr(), _ptr(counts), stream)
     if rc != 0:
         raise RuntimeError(f"bvh4_traverse launch failed: cudaError {rc}")
     launches4 += 1
     return (best_t, best_i, counts) if count else (best_t, best_i)
+
+
+def occupancy(tables, has_tmax: bool = False, any_hit: bool = False, algo: str = "mt",
+              count: bool = False) -> tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of the kernel
+    instance that would walk ``tables`` with these options, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current device.
+    Launches nothing."""
+    out = (ctypes.c_int * 2)()
+    if isinstance(tables, WideTables):
+        rc = load_kernel4().terra_bvh4_query(
+            int(has_tmax), int(any_hit), int(tables.box_enc == "bf16"), tables.s_resident,
+            int(count), _ALGOS[algo], out)
+    else:
+        rc = load_kernel().terra_bvh_query(int(has_tmax), int(any_hit), _ALGOS[algo], out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return out[0], out[1]
 
 
 def traverse_packed(tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",

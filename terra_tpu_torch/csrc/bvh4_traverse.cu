@@ -17,8 +17,8 @@
 //   * COUNT: per-ray pops, leaf tests and paged-node visits (count_steps;
 //     the wrapper's count_decode aggregates them per warp);
 //   * start links (has_starts, one link per packet way on the TPU): with
-//     ``start`` given, ray i's stack starts from start[i], a wide id or
-//     num_wide + leaf id (the stack's own encoding), popped without a box
+//     ``start`` given, ray i's walk starts from start[i], a wide id or
+//     num_wide + leaf id (the stack's own encoding), taken without a box
 //     test as the root is. The compacted two-phase traversal starts each
 //     ray in the subtree of its current (ray, subtree) pair. A runtime
 //     pointer test, not a template parameter, so the 64 instances stay 64;
@@ -27,20 +27,32 @@
 // triangle's id with the rules of bvh_traverse.cu (slab test, ties,
 // t_max / any-hit occlusion, MT or watertight; traverse_common.cuh).
 //
-// Design. A popped wide node loads its four child boxes (96 B in f32 or
+// Design. A visited wide node loads its four child boxes (96 B in f32 or
 // 48 B in bf16, plus 16 B of links, as 16-byte vector loads), tests all
 // four, sorts the hit children by entry t with the reference's 5-exchange
 // network (pairs (0,1) (2,3) (0,2) (1,3) (1,2), swapping on strictly
-// smaller entry, decide_push4) and pushes them far-first so the nearest
-// pops next; a popped leaf is tested at once. An empty child slot keeps
-// the reference's +inf point box, which the slab test never enters. Like
-// the binary kernel it is bound by the latency of dependent, divergent
-// loads: the BVH4 halves the pops per ray, and bf16 halves the box bytes,
-// which matters once the node table competes with the triangle slots for
-// the 50 MB L2 (the 1M-triangle courtyard: 7.7 MiB of f32 nodes, 45 MB of
-// triangle slots at leaf 8). The paged mode launches a persistent grid
-// (blocks that fit at once, each striding over the rays) so the staging of
-// S nodes is paid once per block, not once per 128 rays.
+// smaller entry, decide_push4), pushes the others far-first and goes on
+// with the nearest, the entry the reference's stack pops next. An empty
+// child slot keeps the reference's +inf point box, which the slab test
+// never enters. The kernel is bound by the latency of dependent, divergent
+// loads, not by arithmetic or DRAM bandwidth: a render's batch is a single
+// wave of blocks, so the slowest warps set the time. Three things shorten
+// a warp's path (PERF.md has the A/B of each):
+//   * the walk is Aila and Laine's while-while: a lane visits wide nodes
+//     until it holds a leaf, then the lanes that hold leaves test them in
+//     step, instead of node visits and leaf tests taking turns in one
+//     loop. Each lane stops at its first leaf (no speculation), so each
+//     ray takes its entries in the reference's order: the same tie
+//     winners, the same any-hit stop, the same counters;
+//   * the nearest hit child stays in a register instead of being pushed
+//     and popped at once;
+//   * a leaf slot is one 40-byte row read as five 8-byte loads, and the
+//     next slot's loads go out before the current slot's test
+//     (traverse_common.cuh, leaf_test).
+// The stack stays in local memory (traverse_common.cuh, Stack).
+// The paged mode launches a persistent grid (blocks that fit at once, each
+// striding over the rays) so the staging of S nodes is paid once per
+// block, not once per 128 rays.
 //
 // Build: as bvh_traverse.cu (nvcc sm_90a, -fmad=false, no fast math, so
 // the kernel and raycast4_plain give the same bits).
@@ -66,13 +78,13 @@ struct Args {
     const int4* links;     // (R, 4)
     const float4* pboxes;  // paged: (W - S, 24) f32
     const int4* plinks;    // paged: (W - S, 4)
-    const float* tris;
-    const int32_t* tri_id;
+    const float2* slots;   // (C * leaf_size, 10) f32 rows, the id's bits last
     int64_t n;
     int num_wide, s_res, leaf_size;
     float* out_t;
     int32_t* out_i;
     int32_t* counts;       // COUNT: (n, 3)
+    int* query;            // set: report [blocks per SM, dynamic smem bytes], launch nothing
 };
 
 // 16-byte words per node of each encoding.
@@ -166,21 +178,14 @@ bvh4_traverse_kernel(const Args a) {
         if (ALGO == 1) s = make_shear(r);
         float best_t = HAS_TMAX ? a.t_max[i] : T_FAR;
         int best_i = 0;
-        int pops = 0, leaves = 0, paged = 0;
+        int pops = 1, leaves = 0, paged = 0;
+        Stack stack;
 
-        int stack[TERRA_STACK_CAP];
-        int sp = 0;
-        stack[sp++] = a.start ? __ldg(a.start + i) : 0;
-        while (sp > 0) {
-            const int node = stack[--sp];
-            if (COUNT) ++pops;
-            if (node >= w_count) {
-                if (COUNT) ++leaves;
-                if (leaf_test<ALGO, ANY_HIT>(a.tris, a.tri_id, node - w_count, a.leaf_size, r, s,
-                                             best_t, best_i) && ANY_HIT)
-                    break;
-                continue;
-            }
+        // Visits wide node ``node``: pushes its hit children far-first but
+        // for the nearest, and returns the nearest (the entry the
+        // reference pops next), else the next stack entry, else -1 (the
+        // walk is over).
+        auto visit = [&](int node) -> int {
             float lo[4][3], hi[4][3];
             int4 lk;
             if (!PAGED) {
@@ -206,9 +211,32 @@ bvh4_traverse_kernel(const Args a) {
             exchange<0, 2>(e, l);
             exchange<1, 3>(e, l);
             exchange<1, 2>(e, l);
+            int near = -1;
 #pragma unroll
-            for (int k = 3; k >= 0; --k)  // far first; the nearest ends on top
-                if (e[k] < T_FAR) stack[sp++] = l[k];
+            for (int k = 3; k >= 0; --k)  // far first; the nearest is kept
+                if (e[k] < T_FAR) {
+                    if (near >= 0) stack.push(near);
+                    near = l[k];
+                }
+            if (near < 0) {
+                if (stack.empty()) return -1;
+                near = stack.pop();
+            }
+            if (COUNT) ++pops;
+            return near;
+        };
+
+        int node = a.start ? __ldg(a.start + i) : 0;
+        while (true) {
+            while (node >= 0 && node < w_count) node = visit(node);
+            if (node < 0) break;
+            if (COUNT) ++leaves;
+            if (leaf_test<ALGO, ANY_HIT>(a.slots, node - w_count, a.leaf_size, r, s, best_t,
+                                         best_i) && ANY_HIT)
+                break;
+            if (stack.empty()) break;
+            node = stack.pop();
+            if (COUNT) ++pops;
         }
         a.out_t[i] = best_t;
         a.out_i[i] = best_i;
@@ -224,6 +252,10 @@ template <int ALGO, bool HT, bool AH, int ENC, bool PG, bool CNT>
 int launch(const Args& a, cudaStream_t st) {
     auto kernel = bvh4_traverse_kernel<ALGO, HT, AH, ENC, PG, CNT>;
     if constexpr (!PG) {
+        if (a.query) {
+            a.query[1] = 0;
+            return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.query, kernel, BLOCK, 0);
+        }
         const unsigned grid = (unsigned)((a.n + BLOCK - 1) / BLOCK);
         kernel<<<grid, BLOCK, 0, st>>>(a);
         return (int)cudaGetLastError();
@@ -238,6 +270,11 @@ int launch(const Args& a, cudaStream_t st) {
         if (err != cudaSuccess) return (int)err;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PAGED_BLOCK, bytes);
         if (err != cudaSuccess) return (int)err;
+        if (a.query) {
+            a.query[0] = per_sm;
+            a.query[1] = (int)bytes;
+            return 0;
+        }
         if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
         const int64_t need = (a.n + PAGED_BLOCK - 1) / PAGED_BLOCK;
         const unsigned grid = (unsigned)(need < (int64_t)per_sm * sms ? need : (int64_t)per_sm * sms);
@@ -279,23 +316,42 @@ int with_rays(const Args& a, int enc, int any_hit, cudaStream_t st) {
 // (R, 12) u32 bf16 pairs (enc 1); links: (R, 4) i32 (wide id, or
 // num_wide + leaf id); pboxes / plinks: (num_wide - s_res, 24) f32 and
 // (num_wide - s_res, 4) i32 when s_res > 0 (paged: R == s_res), else
-// unused (R == num_wide); tris: (C * leaf_size, 9) f32; tri_id:
-// (C * leaf_size,) i32; algo 0 = Moller-Trumbore, 1 = watertight; counts:
-// (n, 3) i32 pops / leaf tests / paged visits, or null. Outputs best_t (n,)
-// f32 and best_i (n,) i32. 3 * wide_depth + 2 must not exceed
-// TERRA_STACK_CAP and s_res resident nodes must fit a block's shared
+// unused (R == num_wide); slots: (C * leaf_size, 10) f32 rows, corners a,
+// b, c and the triangle id's bits; algo 0 = Moller-Trumbore, 1 =
+// watertight; counts: (n, 3) i32 pops / leaf tests / paged visits, or null.
+// Outputs best_t (n,) f32 and best_i (n,) i32. 3 * wide_depth + 2 must not
+// exceed TERRA_STACK_CAP and s_res resident nodes must fit a block's shared
 // memory (both checked by the wrapper). Returns 0 or a cudaError_t code.
 extern "C" int terra_bvh4_raycast(const float* o, const float* d, const float* t_max,
                                   const int32_t* start, const void* nodes,
                                   const int32_t* links, const float* pboxes,
-                                  const int32_t* plinks, const float* tris,
-                                  const int32_t* tri_id, int64_t n, int num_wide, int s_res,
-                                  int leaf_size, int enc, int algo, int any_hit, float* out_t,
-                                  int32_t* out_i, int32_t* counts, void* stream) {
+                                  const int32_t* plinks, const float* slots, int64_t n,
+                                  int num_wide, int s_res, int leaf_size, int enc, int algo,
+                                  int any_hit, float* out_t, int32_t* out_i, int32_t* counts,
+                                  void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     const Args a{o, d, t_max, start, nodes, reinterpret_cast<const int4*>(links),
                  reinterpret_cast<const float4*>(pboxes), reinterpret_cast<const int4*>(plinks),
-                 tris, tri_id, n, num_wide, s_res, leaf_size, out_t, out_i, counts};
+                 reinterpret_cast<const float2*>(slots), n, num_wide, s_res, leaf_size, out_t,
+                 out_i, counts, nullptr};
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     return algo == 0 ? with_rays<0>(a, enc, any_hit, st) : with_rays<1>(a, enc, any_hit, st);
+}
+
+// Blocks per SM (out[0]) and dynamic shared memory bytes per block (out[1])
+// of the instance terra_bvh4_raycast would launch for these options, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; launches nothing.
+// Returns 0 or a cudaError_t code.
+extern "C" int terra_bvh4_query(int has_tmax, int any_hit, int enc, int s_res, int count,
+                                int algo, int* out) {
+    static const float t_flag = 0.0f;
+    static int32_t count_flag = 0;
+    Args a{};
+    a.t_max = has_tmax ? &t_flag : nullptr;  // selects the instance only
+    a.counts = count ? &count_flag : nullptr;
+    a.n = 1;
+    a.s_res = s_res;
+    a.query = out;
+    return algo == 0 ? with_rays<0>(a, enc, any_hit, nullptr)
+                     : with_rays<1>(a, enc, any_hit, nullptr);
 }

@@ -1,8 +1,10 @@
 // Shared device code of the traversal kernels (bvh_traverse.cu, the
 // binary tree, and bvh4_traverse.cu, the BVH4 overlay): the ray, the
-// clamped inverse direction and the leaf tests, written with the operation
-// order of terra_tpu_torch/intersect.py so that each kernel and its plain
-// PyTorch version give the same bits (built with -fmad=false, no fast math).
+// clamped inverse direction, the traversal stack, the leaf slot and the
+// leaf tests,
+// written with the operation order of terra_tpu_torch/intersect.py so that
+// each kernel and its plain PyTorch version give the same bits (built with
+// -fmad=false, no fast math).
 #pragma once
 
 #include <cstdint>
@@ -38,6 +40,20 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float
     return r;
 }
 
+// A thread's traversal stack, in local memory: only the entries a walk
+// touches occupy L1. A column of shared memory per thread, sized from the
+// tree, measured 0.5-2% slower on the render's batches, and a ring of 8
+// shared entries spilling to local memory no faster (PERF.md): a shared
+// stack's carve-out takes L1 from the node and triangle loads.
+struct Stack {
+    int entry[TERRA_STACK_CAP];
+    int sp = 0;
+
+    __device__ __forceinline__ void push(int v) { entry[sp++] = v; }
+    __device__ __forceinline__ int pop() { return entry[--sp]; }
+    __device__ __forceinline__ bool empty() const { return sp == 0; }
+};
+
 // Entry t of the ray into the box [min, max], T_FAR when the slab test
 // fails or the box starts beyond best_t. >= keeps flat boxes of
 // axis-aligned walls visible; a +inf point box (an empty BVH4 slot) never
@@ -56,20 +72,30 @@ __device__ __forceinline__ float slab(float x0, float y0, float z0, float x1, fl
     return hit ? tmin : T_FAR;
 }
 
+// One leaf slot: the corners a, b, c and the triangle id, read from a
+// 40-byte row [ax ay az bx by bz cx cy cz id] as five 8-byte loads.
+struct Slot {
+    float ax, ay, az, bx, by, bz, cx, cy, cz;
+    int id;
+};
+
+__device__ __forceinline__ Slot load_slot(const float2* __restrict__ p) {
+    const float2 w0 = __ldg(p), w1 = __ldg(p + 1), w2 = __ldg(p + 2), w3 = __ldg(p + 3),
+                 w4 = __ldg(p + 4);
+    return Slot{w0.x, w0.y, w1.x, w1.y, w2.x, w2.y, w3.x, w3.y, w4.x, __float_as_int(w4.y)};
+}
+
 // Moller-Trumbore (intersect.mt_components).
-__device__ __forceinline__ bool isect_mt(const Ray& r, const float* __restrict__ p, float& t) {
-    const float ax = __ldg(p + 0), ay = __ldg(p + 1), az = __ldg(p + 2);
-    const float bx = __ldg(p + 3), by = __ldg(p + 4), bz = __ldg(p + 5);
-    const float cx = __ldg(p + 6), cy = __ldg(p + 7), cz = __ldg(p + 8);
-    const float e1x = bx - ax, e1y = by - ay, e1z = bz - az;
-    const float e2x = cx - ax, e2y = cy - ay, e2z = cz - az;
+__device__ __forceinline__ bool isect_mt(const Ray& r, const Slot& p, float& t) {
+    const float e1x = p.bx - p.ax, e1y = p.by - p.ay, e1z = p.bz - p.az;
+    const float e2x = p.cx - p.ax, e2y = p.cy - p.ay, e2z = p.cz - p.az;
     const float hx = r.dy * e2z - r.dz * e2y;
     const float hy = r.dz * e2x - r.dx * e2z;
     const float hz = r.dx * e2y - r.dy * e2x;
     const float det = e1x * hx + e1y * hy + e1z * hz;
     const bool ok_det = fabsf(det) > EPS;
     const float inv = 1.0f / (ok_det ? det : 1.0f);
-    const float sx = r.ox - ax, sy = r.oy - ay, sz = r.oz - az;
+    const float sx = r.ox - p.ax, sy = r.oy - p.ay, sz = r.oz - p.az;
     const float u = inv * (sx * hx + sy * hy + sz * hz);
     const float qx = sy * e1z - sz * e1y;
     const float qy = sz * e1x - sx * e1z;
@@ -137,12 +163,11 @@ __device__ __forceinline__ float dop(float p1, float p2, float q1, float q2) {
 }
 
 // Wald2013-style watertight test (intersect.watertight_components).
-__device__ __forceinline__ bool isect_wt(const Ray& r, const Shear& s,
-                                         const float* __restrict__ p, float& t) {
+__device__ __forceinline__ bool isect_wt(const Ray& r, const Shear& s, const Slot& p, float& t) {
     float axp, ayp, azp, bxp, byp, bzp, cxp, cyp, czp;
-    shear(s, r, __ldg(p + 0), __ldg(p + 1), __ldg(p + 2), axp, ayp, azp);
-    shear(s, r, __ldg(p + 3), __ldg(p + 4), __ldg(p + 5), bxp, byp, bzp);
-    shear(s, r, __ldg(p + 6), __ldg(p + 7), __ldg(p + 8), cxp, cyp, czp);
+    shear(s, r, p.ax, p.ay, p.az, axp, ayp, azp);
+    shear(s, r, p.bx, p.by, p.bz, bxp, byp, bzp);
+    shear(s, r, p.cx, p.cy, p.cz, cxp, cyp, czp);
     const float u = dop(cxp, byp, cyp, bxp);
     const float v = dop(axp, cyp, ayp, cxp);
     const float w = dop(bxp, ayp, byp, axp);
@@ -154,25 +179,34 @@ __device__ __forceinline__ bool isect_wt(const Ray& r, const Shear& s,
     return !(any_neg && any_pos) && (det != 0.0f) && (t > EPS);
 }
 
-// Dense test of leaf ``leaf``: returns true when it improved best_t.
+// Dense test of leaf ``leaf`` (rows [leaf * leaf_size, (leaf + 1) *
+// leaf_size) of ``slots``): returns true when it improved best_t. The next
+// slot's loads go out before this slot's test, so each test waits on loads
+// issued one test earlier. Every slot is tested, the padding too: the
+// lanes of a warp test their leaves in step, so a lane that stopped at its
+// leaf's padding would wait for the others, and the check measured 1-5%
+// slower on two of the three render batches (PERF.md).
 template <int ALGO, bool ANY_HIT>
-__device__ __forceinline__ bool leaf_test(const float* __restrict__ tris,
-                                          const int32_t* __restrict__ tri_id,
-                                          int leaf, int leaf_size, const Ray& r,
-                                          const Shear& s, float& best_t, int& best_i) {
+__device__ __forceinline__ bool leaf_test(const float2* __restrict__ slots, int leaf,
+                                          int leaf_size, const Ray& r, const Shear& s,
+                                          float& best_t, int& best_i) {
     float lt = T_FAR;
     int li = INT_MAX;
-    const int64_t base = (int64_t)leaf * leaf_size;
-    for (int k = 0; k < leaf_size; ++k) {
+    const float2* p = slots + (int64_t)leaf * leaf_size * 5;
+    Slot tri = load_slot(p);
+    for (int k = 1;; ++k) {
+        const bool more = k < leaf_size;
+        Slot next = tri;
+        if (more) next = load_slot(p + 5 * k);
         float t;
-        const float* p = tris + 9 * (base + k);
-        const bool ok = ALGO == 0 ? isect_mt(r, p, t) : isect_wt(r, s, p, t);
+        const bool ok = ALGO == 0 ? isect_mt(r, tri, t) : isect_wt(r, s, tri, t);
         const float tm = ok ? t : T_FAR;
-        const int id = __ldg(tri_id + base + k);
-        if (tm < lt || (tm == lt && id < li)) {
+        if (tm < lt || (tm == lt && tri.id < li)) {
             lt = tm;
-            li = id;
+            li = tri.id;
         }
+        if (!more) break;
+        tri = next;
     }
     if (lt < best_t) {
         best_i = li;

@@ -2,6 +2,8 @@
 Pallas kernel in interpret mode and vs brute force, with the budgets of
 test_pallas_traverse.py: hit masks equal, t within rtol 1e-4, >= 99% of
 hits on the same triangle (f32 ties on shared edges may differ)."""
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -11,8 +13,10 @@ import terra_tpu as tt
 from terra_tpu import intersect as jint
 from terra_tpu.accel import pallas_traverse as jpt
 import terra_tpu_torch as ttt
+from terra_tpu_torch import interop
 from terra_tpu_torch import intersect as tint
 from terra_tpu_torch.accel import pallas_traverse as tpt
+from tests.test_torch_scene import SMALL_COURTYARD, flatten
 
 
 def _rays(seed, n=2048):
@@ -111,10 +115,10 @@ def test_wrapper_rejects_bad_inputs(case):
 
 @pytest.mark.parametrize("arity", [2, 4])
 def test_counted_walk_marks_what_it_pops(arity):
-    """The plain walks' counters and touched-node marks (what the card's
-    least time is priced from) leave the result unchanged: every ray pops
-    at least the root, leaf tests are pops, and the touched ids are the
-    root plus nodes below it."""
+    """The plain walks' counters and visit counts (what the card's least
+    time is priced from) leave the result unchanged: every ray pops at
+    least the root, leaf tests are pops, the visits add up to the pops and
+    the leaf visits to the leaf tests."""
     _, ts = _scenes(700)
     o, d = (torch.as_tensor(v) for v in _rays(5))
     corners = ts.geometry.corners()
@@ -125,10 +129,105 @@ def test_counted_walk_marks_what_it_pops(arity):
         tables = tpt.pack_tables_wide(ts.bvh, *corners, box_enc="f32")
         walk, inner = tpt.raycast4_plain, tables.num_wide
         n_ids = inner + tables.tri_id.shape[0] // tables.leaf_size
-    touched = torch.zeros(n_ids, dtype=torch.bool)
-    t, i, counts = walk(tables, o, d, count=True, touched=touched)
+    visits = torch.zeros(n_ids, dtype=torch.int32)
+    t, i, counts = walk(tables, o, d, count=True, visits=visits)
     t0, i0 = walk(tables, o, d)
     assert torch.equal(t, t0) and torch.equal(i, i0)
     assert bool((counts[:, 0] >= 1).all()) and bool((counts[:, 1] <= counts[:, 0]).all())
-    assert bool(touched[0]) and 0 < int(touched[inner:].sum()) <= n_ids - inner
-    assert int(counts[:, 1].sum()) >= int(touched[inner:].sum())
+    assert int(visits[0]) == len(o) and 0 < int((visits[inner:] > 0).sum()) <= n_ids - inner
+    assert int(visits.sum()) == int(counts[:, 0].sum())
+    assert int(visits[inner:].sum()) == int(counts[:, 1].sum())
+
+
+def _make(mod, case, **kw):
+    """The BVH scene ``case`` from ``mod`` (terra_tpu or terra_tpu_torch)."""
+    if case == "courtyard":
+        return mod.scenes.courtyard(**SMALL_COURTYARD, **kw)
+    if case == "cornell":
+        return mod.scenes.cornell_box(accelerator=mod.Accelerator.BVH, **kw)
+    return mod.scenes.random_triangles(1500, seed=4, accelerator=mod.Accelerator.BVH, **kw)
+
+
+def _leaf_scenes(case, source):
+    """(terra_tpu scene, port scene) of ``case``: the port's built by its
+    native SAH (``source`` = "native") or carried across from terra_tpu's
+    with interop."""
+    js = _make(tt, case)
+    if source == "native":
+        return js, _make(ttt, case, device="cpu")
+    return js, interop.scene_from_numpy(flatten(js), device="cpu")
+
+
+LEAF_CASES = [(c, s) for c in ("courtyard", "cornell", "random") for s in ("native", "interop")]
+
+
+@pytest.mark.parametrize("case,source", LEAF_CASES)
+def test_leaf_padding_is_trailing_repeats(case, source):
+    """What the kernels' leaf test relies on to stop early: every leaf's
+    slots are distinct triangle ids followed by repeats of the last one."""
+    _, ts = _leaf_scenes(case, source)
+    lt = ts.bvh.leaf_tri.numpy()
+    c, ls = lt.shape
+    real = np.where((lt[:, 1:] == lt[:, :-1]).any(axis=1),
+                    (lt[:, 1:] == lt[:, :-1]).argmax(axis=1) + 1, ls)
+    prefix = np.arange(ls)[None, :] < real[:, None]
+    last = lt[np.arange(c), real - 1]
+    assert (lt[~prefix] == np.broadcast_to(last[:, None], lt.shape)[~prefix]).all()
+    i, j = np.triu_indices(ls, k=1)
+    both = prefix[:, i] & prefix[:, j]
+    assert not (both & (lt[:, i] == lt[:, j])).any()
+    assert (lt >= 0).all()
+    tables = tpt.pack_tables(ts.bvh, *ts.geometry.corners())
+    np.testing.assert_array_equal(tpt.leaf_real_counts(tables).numpy(), real)
+
+
+@pytest.mark.parametrize("arity", [2, 4])
+@pytest.mark.parametrize("case,source", [("courtyard", "native"), ("random", "interop")])
+def test_padding_slots_change_no_result(case, source, arity):
+    """A leaf's padding slots (repeats of its last triangle) can never win a
+    leaf test, so the least work of a walk counts real triangles only
+    (``leaf_real_counts``, which prices the kernels' bound): with every
+    padding slot's corners set to NaN (a triangle no ray hits) the walk
+    gives the same words, counters included, and agrees with terra_tpu's
+    Pallas kernel (interpret mode)."""
+    js, ts = _leaf_scenes(case, source)
+    corners = ts.geometry.corners()
+    tables = tpt.pack_tables(ts.bvh, *corners) if arity == 2 else \
+        tpt.pack_tables_wide(ts.bvh, *corners)
+    real = tpt.leaf_real_counts(tables)
+    pad = torch.arange(tables.leaf_size)[None, :] >= real[:, None]
+    assert bool(pad.any())  # the scene has padding
+    nan = dataclasses.replace(tables, slots=tables.slots.clone())
+    nan.slots.view(-1, tables.leaf_size, 10)[..., :9][pad] = float("nan")
+    walk = tpt.raycast_plain if arity == 2 else tpt.raycast4_plain
+    lo, hi = ts.bvh.node_min[0].numpy(), ts.bvh.node_max[0].numpy()
+    o, d = _rays(31)
+    o = lo + (o + 2.0) / 4.0 * (hi - lo)
+    tm = np.random.default_rng(32).uniform(0.05, 5.0, len(o)).astype(np.float32)
+    o, d, tm = (torch.as_tensor(x) for x in (o, d, tm))
+    for t_max, any_hit in ((None, False), (tm, True)):
+        full = walk(tables, o, d, t_max, any_hit, count=True)
+        real_only = walk(nan, o, d, t_max, any_hit, count=True)
+        for a, b in zip(full, real_only):
+            assert torch.equal(a, b)
+    ref = jpt.raycast(js, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), interpret=True)
+    _assert_match(tpt.raycast(ts, o, d, tables=nan), ref)
+
+
+@pytest.mark.parametrize("kind", ["binary", "f32", "bf16", "paged"])
+def test_slots_hold_the_corners_and_ids(kind):
+    """The 40-byte slot rows hold each leaf slot's corners and its id's
+    bits: the same values as the leaf-ordered corners and ``leaf_tri``."""
+    _, ts = _leaf_scenes("random", "native")
+    c = ts.geometry.corners()
+    tab = {"binary": lambda: tpt.pack_tables(ts.bvh, *c),
+           "f32": lambda: tpt.pack_tables_wide(ts.bvh, *c),
+           "bf16": lambda: tpt.pack_tables_wide(ts.bvh, *c, box_enc="bf16"),
+           "paged": lambda: tpt.pack_tables_paged(ts.bvh, *c, resident_cap=4)}[kind]()
+    slot = ts.bvh.leaf_tri.reshape(-1).long()
+    assert tab.slots.shape == (slot.shape[0], 10) and tab.slots.is_contiguous()
+    assert tab.slots.dtype == torch.float32 and tab.slots.stride(0) * 4 == 40
+    for k in range(3):
+        assert torch.equal(tab.tris[:, 3 * k:3 * k + 3], c[k][slot])
+    assert tab.tri_id.dtype == torch.int32
+    assert torch.equal(tab.tri_id, slot.to(torch.int32))

@@ -256,3 +256,28 @@ def test_wide_wrappers_reject_bad_inputs(case):
     with pytest.raises(exc):
         fn()
     assert tpt.launches4 == before
+
+
+@pytest.mark.parametrize("kind", ["binary", "f32", "paged"])
+def test_stack_cap_boundary(kind):
+    """The kernels' per-thread stack holds STACK_CAP entries: the deepest
+    tree whose walk fits (depth + 2, or 3 * wide_depth + 2 entries) is
+    walked, one level more is refused, by the plain walks as by the CUDA
+    wrappers (which share the check)."""
+    _, ts = _twins(3000, 77)
+    c = ts.geometry.corners()
+    tab = {"binary": lambda: tpt.pack_tables(ts.bvh, *c),
+           "f32": lambda: tpt.pack_tables_wide(ts.bvh, *c),
+           "paged": lambda: tpt.pack_tables_paged(ts.bvh, *c, resident_cap=8)}[kind]()
+    wide = kind != "binary"
+    walk = tpt.raycast4_plain if wide else tpt.raycast_plain
+    field = "wide_depth" if wide else "depth"
+    deepest = (tpt.STACK_CAP - 2) // 3 if wide else tpt.STACK_CAP - 2
+    o, d = (torch.as_tensor(x) for x in _rays(3, 64))
+    ref = walk(tab, o, d)
+    setattr(tab, field, deepest)
+    got = walk(tab, o, d)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    setattr(tab, field, deepest + 1)
+    with pytest.raises(ValueError, match="entry stack"):
+        walk(tab, o, d)
