@@ -73,13 +73,36 @@ exits non-zero (there is no CPU fallback):
   5. the pattern probes: each of the eleven bodies through its
      ``terra_tpu_torch.scripts`` entry point on the card (it must print OK),
      held word for word against its plain PyTorch version on the same input;
-     kernel and plain times (CUDA events, mean of 200 runs after a warm-up).
+     kernel and plain times (CUDA events, mean of 200 runs after a warm-up);
+  6. inverse rendering (``optim.py`` on torch autograd): 6a bench config 4
+     (the blockless Cornell box by brute force, 32x32, 8 spp, 2 bounces,
+     DIRECT, Adam 3e-2 on attrs from a wall albedo of [0.3, 0.5, 0.6]; one
+     warm-up step, then 20 timed, CUDA events and host clock; the loss must
+     fall); 6b the same on BVH trees of both builders (SAH, LBVH), so the
+     BVH4 kernel runs under autograd: the albedo gradient against 6a's
+     within 1e-3, against a central difference within 5%, two calls equal
+     bit for bit; 6c ``recover`` on the 242k courtyard at 3b's size (cut:
+     one sample per lane, rr_start_bounce 8) for 4 Adam steps on attrs,
+     textures and positions with a host refit every step: ms per step split
+     into forward, backward, Adam and refit plus repack, BVH4 launches per
+     step, peak memory, losses; gates: finite losses and gradients, every
+     leaf box holds its moved triangles, two gradient calls equal bit for
+     bit (deterministic algorithms on; also timed and compared off), and
+     the loss on fixed samples falls under a textures-only recover; 6d the
+     12x12 gradient of ``test_grad_albedo_matches_fd`` on CPU and CUDA
+     tensors within 1e-3.
+
+Phase 1 also builds both traversal kernels with the earlier 64-entry stack;
+phase 2b gates both kernels on a 1,700-triangle tree whose BVH4 walk needs
+65 of the reference's 160 stack entries; phase 2c times the 160- and
+64-entry builds in turns on the 3b batches (words must be equal).
 
 The main path is every run through the user's entry points: the sorted
 renders of phases 3, 3m and 3g, the sorted ``traverse_packed`` in phase
 3m, the compact bench of phase 3c, the CUDA half of each twin in phase 4
 (the binary kernel is on it only there, since ``wide_mode`` picks the
-BVH4 overlay for both courtyards) and the probe entry points of phase 5.
+BVH4 overlay for both courtyards), the probe entry points of phase 5 and
+the training steps and ``recover`` runs of phase 6.
 Each is run with the launch counts set to 0 and read after; launches that
 compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
@@ -361,7 +384,8 @@ def _brute(torch, scene, o, d, algo):
 
 def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
     """Phase 2b on one scene. Returns {mode: {"max_abs_err", "ms", "plain_ms"}}
-    of its camera batch, and the overall max |dt| against the plain walk."""
+    of its camera batch, the overall max |dt| against the plain walk, and
+    the binary kernel's {"ms", "bound_ms", "bound_by"} on the camera batch."""
     bvh = scene.bvh
     corners = scene.geometry.corners()
     o_cam, d_cam = _camera_rays(torch, cam, 1024, dev)
@@ -378,10 +402,16 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
           f"wide depth {bvh.wide_depth}, {int((bvh.wide_src < 0).sum())} of "
           f"{4 * bvh.num_wide} child slots empty; binary-kernel and brute-force references "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    binary_camera = {}
     for name, o, d, tm, any_hit, algo in cases:
         ms = _ms(torch, lambda: pt.raycast_cuda(binary, o, d, tm, any_hit, algo), 20)
         print(f"  binary {name}: kernel {ms:.3f} ms ({o.shape[0] / ms / 1e3:.1f} Mrays/s)",
               flush=True)
+        if name.startswith("camera"):  # the binary walk's least time on these rays
+            (b, by), _ = _walk_bound(torch, pt, binary, lambda visits: pt.raycast_plain(
+                binary, o, d, count=True, visits=visits), binary.ni, o.shape[0],
+                BIN_NODE_BYTES, 2)
+            binary_camera = {"ms": ms, "bound_ms": b, "bound_by": by}
     tables = {"f32": pt.pack_tables_wide(bvh, *corners, box_enc="f32"),
               "bf16": pt.pack_tables_wide(bvh, *corners, box_enc="bf16"),
               "paged": pt.pack_tables_paged(bvh, *corners),
@@ -441,7 +471,7 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
             if not same or bool(c["paged"].sum() > 0) != pages:
                 raise AssertionError(f"counted {mode} run differs from the uncounted one or "
                                      f"the counted plain walk, or counts paged visits wrongly")
-    return out, max_err
+    return out, max_err, binary_camera
 
 
 def _start_gate(torch, pt, scene, label, dev, seed):
@@ -711,6 +741,412 @@ def _material_twins(torch, ttt, pt):
     return launches
 
 
+def _with_cap(pt, cap: int):
+    """Context in which the traversal wrappers launch the kernels built with
+    a ``cap``-entry stack."""
+    return mock.patch.multiple(pt, load_kernel=functools.partial(pt.load_kernel, cap),
+                               load_kernel4=functools.partial(pt.load_kernel4, cap))
+
+
+def _cap_ab(torch, pt, batches, binary, footprint64):
+    """Phase 2c's A/B of the stack depth: each traversal kernel built with
+    the reference's 160-entry stack (the port's) and with the earlier 64
+    entries, on the render's batches, timed in turns (160, 64, 64, 160;
+    CUDA events, mean of 50 behind a sleep kernel). The two builds must
+    give the same words. Returns {kernel: {batch: (ms160, ms64)}}."""
+    out = {"bvh4_traverse": {}, "bvh_traverse": {}}
+    for label, (tab, o, d, tm, any_hit, algo) in batches.items():
+        walks = [("bvh4_traverse", tab, pt.raycast4_cuda)]
+        if label in binary:
+            walks.append(("bvh_traverse", binary[label], pt.raycast_cuda))
+        for name, t, kfn in walks:
+            ref = kfn(t, o, d, tm, any_hit, algo)
+            with _with_cap(pt, 64):
+                got = kfn(t, o, d, tm, any_hit, algo)
+                blocks64 = pt.occupancy(t, tm is not None, any_hit, algo)[0]
+            words = sum(int((a != b).sum()) for a, b in zip(ref, got))
+            times = {160: [], 64: []}
+            for cap in (160, 64, 64, 160):
+                with _with_cap(pt, cap):
+                    times[cap].append(_ms(torch, lambda: kfn(t, o, d, tm, any_hit, algo), 50,
+                                          backlog=True))
+            ms160, ms64 = (float(np.mean(times[c])) for c in (160, 64))
+            frame64 = max(fp[1] for fp in footprint64[name].values())
+            print(f"phase 2c: stack A/B {name} {label}: cap 160 {ms160:.4f} ms, cap 64 "
+                  f"{ms64:.4f} ms (turns {[round(x, 4) for x in times[160]]} / "
+                  f"{[round(x, 4) for x in times[64]]}), 160/64 = {ms160 / ms64:.3f}; words "
+                  f"differing {words}; cap 64: blocks per SM {blocks64}, largest stack frame "
+                  f"{frame64} B", flush=True)
+            if words:
+                raise AssertionError(f"{name}: the 64- and 160-entry builds differ on {label}")
+            out[name][label] = (ms160, ms64)
+    return out
+
+
+def deep_scene(ttt, dev):
+    """1,700 unit right triangles in the planes x = 1.05^k, committed with
+    native SAH at leaf 8: binary depth 22, BVH4 depth 21, so the BVH4 walk
+    needs 3 * 21 + 2 = 65 stack entries (tests/test_torch_lbvh.py)."""
+    from terra_tpu_torch.scenes import make_geometry
+
+    xs = 1.05 ** np.arange(1700)
+    tris = [[(x, 0.0, 0.0), (x, 1.0, 0.0), (x, 0.0, 1.0)] for x in xs]
+    geom = make_geometry(tris, np.zeros(len(tris), np.int32), device=dev)
+    return ttt.commit(geom, ttt.scenes.cornell_box(device=dev).materials,
+                      accelerator=ttt.Accelerator.BVH)
+
+
+def _deep_gate(torch, ttt, pt, dev, footprint, n=1 << 18):
+    """Phase 2b's deep tree (ROADMAP fault C1): both kernels against their
+    plain walks on 2^18 axis rays that start before the 450 nearest planes
+    (the deepest leaves), closest-hit and t_max any-hit; 0 differing words."""
+    scene = deep_scene(ttt, dev)
+    bvh = scene.bvh
+    need2, need4 = bvh.depth + 2, 3 * bvh.wide_depth + 2
+    frames = {k: max(fp[1] for fp in v.values()) for k, v in footprint.items()
+              if k != "pattern_probes"}
+    print(f"phase 2b: deep tree {scene.geometry.num_triangles} tris, depth {bvh.depth} (stack "
+          f"{need2}), wide depth {bvh.wide_depth} (stack {need4}), STACK_CAP {pt.STACK_CAP}; "
+          f"largest ptxas stack frames {frames}", flush=True)
+    if not 64 < need4 <= pt.STACK_CAP:
+        raise AssertionError("the deep tree does not need between 65 and STACK_CAP entries")
+    gen = np.random.default_rng(41)
+    j = gen.integers(1, 450, n)
+    o = np.concatenate([0.99 * 1.05 ** j[:, None],
+                        gen.uniform(0.05, 0.45, (n, 2)) + (gen.random((n, 1)) < 0.1)], 1)
+    d = np.zeros((n, 3))
+    d[:, 0] = np.where(gen.random(n) < 0.8, 1.0, -1.0)
+    o, d = (torch.as_tensor(x.astype(np.float32), device=dev) for x in (o, d))
+    t_occ = torch.as_tensor(gen.uniform(0.0, 1e9, n).astype(np.float32), device=dev)
+    corners = scene.geometry.corners()
+    out = {"bvh_traverse": 0.0, "bvh4_traverse": 0.0}  # max |dt| against the plain walk
+    for name, tab, kfn, pfn in (
+            ("bvh_traverse", pt.pack_tables(bvh, *corners), pt.raycast_cuda, pt.raycast_plain),
+            ("bvh4_traverse", pt.pack_tables_wide(bvh, *corners), pt.raycast4_cuda,
+             pt.raycast4_plain)):
+        for case, tm, any_hit in (("closest-hit", None, False), ("t_max any-hit", t_occ, True)):
+            k = kfn(tab, o, d, tm, any_hit)
+            p = pfn(tab, o, d, tm, any_hit)
+            torch.cuda.synchronize()
+            err = _compare(f"deep tree {name} {case} vs plain", k, p, tm, any_hit)
+            words = int((k[0] != p[0]).sum()) + int((k[1] != p[1]).sum())
+            if words:
+                raise AssertionError(f"{name} differs from its plain walk on the deep tree")
+            out[name] = max(out[name], err)
+    return out
+
+
+def _config4(torch, ttt, dev, accelerator=None, builder="sah"):
+    """bench.py's config 4 (bench.py:493-533): the Cornell box without
+    blocks, 32x32, 8 spp, 2 bounces, DIRECT, rr_start_bounce 8; the target
+    rendered at the true albedo, the start with the wall albedo [0.3, 0.5,
+    0.6]. Returns (start scene, camera, options, target, key)."""
+    from terra_tpu_torch import optim
+    from terra_tpu_torch.ops import rng
+
+    gt = ttt.scenes.cornell_box(with_blocks=False, device=dev)
+    if accelerator is not None:
+        gt = ttt.commit(gt.geometry, gt.materials, accelerator=accelerator, bvh_builder=builder)
+    cam = ttt.scenes.cornell_camera(device=dev)
+    opts = ttt.RenderOptions(width=32, height=32, samples_per_pixel=8, bounces=2,
+                             integrator=ttt.Integrator.DIRECT, rr_start_bounce=8)
+    key = rng.key_from_seed(0)
+    with torch.no_grad():
+        target = optim.render_mean_image(gt, cam, opts, key, 0, 8)
+    attrs = gt.materials.attrs.clone()
+    attrs[0, 0] = torch.tensor([0.3, 0.5, 0.6], device=dev)
+    return optim.inject_params(gt, {"attrs": attrs}), cam, opts, target, key
+
+
+def _grad(torch, optim, scene, cam, opts, target, key, fields=("attrs",)):
+    """(loss, gradient list) of the MSE loss at the scene's parameters."""
+    params = optim._trainable(optim.extract_params(scene, fields, cam=cam))
+    loss, grads = optim.value_and_grad(optim.make_loss_fn(cam, opts, target), params, scene,
+                                       key, 0)
+    torch.cuda.synchronize()
+    return float(loss), grads
+
+
+def _same_bits(a, b) -> bool:
+    """Two f32 tensors hold the same bits."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def _phase6ab(torch, ttt, pt, dev):
+    """Phases 6a and 6b. Returns (launches of the main path {"binary",
+    "bvh4"}, results)."""
+    from terra_tpu_torch import optim
+
+    launches = collections.Counter()
+    adam = functools.partial(torch.optim.Adam, lr=3e-2)
+    # 6a: config 4 on the brute-force scene, as the bench commits it
+    scene, cam, opts, target, key = _config4(torch, ttt, dev)
+    step = optim.make_train_step(cam, opts, target, adam)
+    state = optim.TrainState(optim.extract_params(scene, ("attrs",)), None, 0)
+    state, loss = step(state, scene, key)  # warm-up
+    first = float(loss)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(20):
+        state, loss = step(state, scene, key)
+    stop.record()
+    final = float(loss)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    ev_ms = start.elapsed_time(stop) / 20
+    alb = state.params["attrs"][0, 0].detach().cpu().numpy()
+    print(f"phase 6a: config 4 (brute force, 32x32x8spp, 2 bounces, DIRECT, Adam 3e-2 on attrs): "
+          f"{ev_ms:.2f} ms/step (CUDA events), {host_ms:.2f} ms/step (host clock to a final "
+          f"float(loss)); loss {first:.6f} after the warm-up step -> {final:.6f} after 20 more; "
+          f"wall albedo {alb.round(4)}", flush=True)
+    if not np.isfinite(final) or not final < first:
+        raise AssertionError("config 4: the loss did not descend")
+    out = {"6a": {"ms_per_step": ev_ms, "host_ms_per_step": host_ms, "loss_first": first,
+                  "loss_final": final}}
+    # the albedo gradient at the start, brute force
+    _, (g_brute,) = _grad(torch, optim, scene, cam, opts, target, key)
+    # 6b: the same on BVH scenes, so the kernel runs under autograd
+    for builder in ("sah", "lbvh"):
+        bscene, bcam, bopts, btarget, bkey = _config4(torch, ttt, dev, ttt.Accelerator.BVH,
+                                                      builder)
+        pt.launches = pt.launches4 = 0
+        bstep = optim.make_train_step(bcam, bopts, btarget, adam)
+        bstate, bloss = bstep(optim.TrainState(optim.extract_params(bscene, ("attrs",)), None, 0),
+                              bscene, bkey)
+        torch.cuda.synchronize()
+        launches.update(binary=pt.launches, bvh4=pt.launches4)
+        step_l2, step_l4 = pt.launches, pt.launches4
+        _, (g1,) = _grad(torch, optim, bscene, bcam, bopts, btarget, bkey)
+        _, (g2,) = _grad(torch, optim, bscene, bcam, bopts, btarget, bkey)
+        same = _same_bits(g1, g2)
+        ga, gb = g1[0, 0].double(), g_brute[0, 0].double()
+        rel = float((ga - gb).abs().max() / gb.abs().max())
+
+        def f(x):
+            attrs = bscene.materials.attrs.clone()
+            attrs[0, 0, :] = x
+            with torch.no_grad():
+                img = optim.render_mean_image(optim.inject_params(bscene, {"attrs": attrs}),
+                                              bcam, bopts, bkey, 0, 8)
+            return float(torch.mean((img - 0.5 * btarget) ** 2))
+
+        x = torch.tensor(0.73, device=dev, requires_grad=True)
+        attrs = bscene.materials.attrs.clone()
+        attrs[0, 0, :] = x
+        img = optim.render_mean_image(optim.inject_params(bscene, {"attrs": attrs}), bcam, bopts,
+                                      bkey, 0, 8)
+        (gx,) = torch.autograd.grad(torch.mean((img - 0.5 * btarget) ** 2), [x])
+        g, fd = float(gx), (f(0.73 + 1e-2) - f(0.73 - 1e-2)) / 2e-2
+        fd_rel = abs(g - fd) / max(abs(fd), 1e-3)
+        print(f"phase 6b: config 4 on a BVH scene ({builder}, table kind "
+              f"{pt.wide_mode(bscene.bvh) or 'binary'}): one step {float(bloss):.6f}, launches "
+              f"binary {step_l2} bvh4 {step_l4}; albedo gradient {ga.cpu().numpy()} vs brute "
+              f"force {gb.cpu().numpy()}: max rel {rel:.3e} (gate 1e-3); d loss / d albedo "
+              f"{g:.6e} vs central difference {fd:.6e}: rel {fd_rel:.3e} (gate 0.05); two "
+              f"gradient calls bit-equal {same}", flush=True)
+        if step_l2 + step_l4 <= 0 or rel > 1e-3 or fd_rel > 0.05 or not same:
+            raise AssertionError(f"phase 6b ({builder}) failed a gate")
+        out[f"6b/{builder}"] = {"rel_vs_brute": rel, "fd_rel": fd_rel, "launches4": step_l4}
+    return launches, out
+
+
+def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
+    """Phase 6c: recover() on the 242k courtyard at 3b's size (384x384, 8 spp,
+    2 bounces, DIRECT, jitter 0.5; cut: samples_per_lane 1, rr_start_bounce
+    8) for 4 Adam steps at lr 3e-2 on attrs, textures and positions,
+    refitting every step. Each stage is timed between synchronisations by
+    wrapping optim.value_and_grad (forward, then backward), the loss (the
+    forward), torch.optim.Adam.step, lbvh.refit and pack_tables_auto (the
+    repack inside the next forward). Then the gradient at the final state,
+    twice with deterministic algorithms and twice without, in turns.
+
+    Losses are compared on the same samples (key 7, offset 0): the loss of
+    each step draws new ones. The MSE of this scene is dominated by the
+    reference estimator's negative NEE radiance (ROADMAP queue C3), the
+    position gradient ignores visibility (optim.py's known limitation) and
+    Adam's first steps move every entry by +-lr whatever its gradient, so
+    with positions and attributes the loss need not fall; the descent gate
+    is a second recover() from the same start on the halved textures alone.
+    Returns (launches of the main path, results)."""
+    import contextlib
+    import warnings
+
+    from terra_tpu_torch import optim
+    from terra_tpu_torch.accel import lbvh
+    from terra_tpu_torch.ops import rng
+
+    opts = ttt.RenderOptions(width=side, height=side, samples_per_pixel=8, bounces=2,
+                             integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
+                             rr_start_bounce=8)
+    fields = ("attrs", "textures", "positions")
+    with torch.no_grad():
+        target = optim.render_mean_image(scene, cam, opts, rng.key_from_seed(7), 0, 8)
+    print(f"phase 6c: target {side}x{side}x8spp: mean {float(target.mean()):.4e}, min "
+          f"{float(target.min()):.4e}, max {float(target.max()):.4e}, negative values "
+          f"{float((target < 0).float().mean()):.4%}", flush=True)
+    attrs = scene.materials.attrs.clone()
+    attrs[0, 0] = torch.tensor([0.3, 0.5, 0.6], device=dev)
+    start = optim.inject_params(scene, {"attrs": attrs, "textures": scene.textures.data * 0.5})
+    key = rng.key_from_seed(7)
+    loss_fn = optim.make_loss_fn(cam, opts, target)
+    with torch.no_grad():
+        loss_start = float(loss_fn(optim.extract_params(start, fields), start, key, 0))
+    optim.recover(start, cam, opts.replace(width=32, height=32), torch.zeros((32, 32, 3), device=dev),
+                  fields=fields, steps=1, learning_rate=3e-2, seed=7)  # warm-up, small
+    rec = collections.defaultdict(list)
+
+    def timed(name, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        rec[name].append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    real_vg, real_refit, real_pack = optim.value_and_grad, lbvh.refit, pt.pack_tables_auto
+    real_adam = torch.optim.Adam.step
+
+    def vg(loss_fn, params, *args):
+        l4 = pt.launches4
+        loss, grads = timed("forward+backward", real_vg,
+                            lambda *a: timed("forward", loss_fn, *a), params, *args)
+        rec["bvh4 launches"].append(pt.launches4 - l4)
+        finite = [bool(torch.isfinite(g).all()) for g in grads]
+        rec["finite"].append(bool(torch.isfinite(loss)) and all(finite))
+        if not all(finite):
+            print(f"  non-finite gradient entries per field {sorted(params)}: "
+                  f"{[int((~torch.isfinite(g)).sum()) for g in grads]}", flush=True)
+        return loss, grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pt.launches = pt.launches4 = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(optim, "value_and_grad", vg), \
+            mock.patch.object(lbvh, "refit", lambda *a: timed("refit", real_refit, *a)), \
+            mock.patch.object(pt, "pack_tables_auto", lambda *a: timed("pack", real_pack, *a)), \
+            mock.patch.object(torch.optim.Adam, "step",
+                              lambda self, closure=None: timed("adam", real_adam, self, closure)):
+        recovered, losses = optim.recover(start, cam, opts, target, fields=fields, steps=4,
+                                          learning_rate=3e-2, seed=7)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) / 4 * 1e3
+    launches = {"binary": pt.launches, "bvh4": pt.launches4}
+    peak = torch.cuda.max_memory_allocated()
+    fwd = rec["forward"]
+    bwd = [a - b for a, b in zip(rec["forward+backward"], fwd)]
+    print(f"phase 6c: recover on the courtyard ({scene.geometry.num_triangles} tris, table "
+          f"kind {pt.wide_mode(scene.bvh) or 'binary'}), {side}x{side}x8spp ({side * side * 8} "
+          f"lanes), 2 bounces, DIRECT, fields {fields}, 4 Adam steps at 3e-2: {total:.1f} ms/step "
+          f"(host clock); peak memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
+          f"above the {base / 2**30:.2f} GiB held before); launches binary {launches['binary']} "
+          f"bvh4 {launches['bvh4']}", flush=True)
+    for i in range(4):
+        print(f"  step {i}: loss {losses[i]:.6e}; forward {fwd[i]:.1f} ms (of which table pack "
+              f"{rec['pack'][i]:.1f} ms), backward {bwd[i]:.1f} ms, Adam {rec['adam'][i]:.2f} "
+              f"ms, refit {rec['refit'][i]:.1f} ms (refit + the next pack "
+              f"{rec['refit'][i] + (rec['pack'][i + 1] if i + 1 < 4 else rec['pack'][i]):.1f} "
+              f"ms), bvh4 launches {rec['bvh4 launches'][i]}, finite {rec['finite'][i]}",
+              flush=True)
+    # every leaf box holds its moved triangles
+    bvh, geom = recovered.bvh, recovered.geometry
+    corners = geom.positions[geom.tri_vidx.long()[bvh.leaf_tri.long()]]  # (C, L, 3, 3)
+    lo, hi = corners.amin(dim=(1, 2)), corners.amax(dim=(1, 2))
+    ni = bvh.num_internal
+    contained = bool((lo >= bvh.node_min[ni:]).all() and (hi <= bvh.node_max[ni:]).all())
+    moved = float((geom.positions - scene.geometry.positions).abs().max())
+    print(f"  positions moved by up to {moved:.4e}; every leaf box holds its triangles "
+          f"{contained}", flush=True)
+    # the gradient at the final state: deterministic algorithms on and off
+    grads, ms = {True: [], False: []}, {True: [], False: []}
+    for det in (True, False, False, True):
+        ctx = contextlib.nullcontext() if det else mock.patch.object(
+            optim, "deterministic", contextlib.nullcontext)
+        with ctx, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            loss_end, g = _grad(torch, optim, recovered, cam, opts, target, key, fields)
+            ms[det].append((time.perf_counter() - t0) * 1e3)
+        grads[det].append(g)
+        notes = sorted({str(w.message).split(".")[0][:120] for w in caught})
+        if notes:
+            print(f"  deterministic {det}: warnings {notes}", flush=True)
+    same = {det: all(_same_bits(a, b) for a, b in zip(*grads[det])) for det in (True, False)}
+    cross = all(_same_bits(a, b) for a, b in zip(grads[True][0], grads[False][0]))
+    print(f"  gradient at the final state (forward + backward): deterministic algorithms "
+          f"{np.mean(ms[True]):.1f} ms ({[round(x, 1) for x in ms[True]]}), without "
+          f"{np.mean(ms[False]):.1f} ms ({[round(x, 1) for x in ms[False]]}); two calls "
+          f"bit-equal: with {same[True]}, without {same[False]}; with == without {cross}",
+          flush=True)
+    # the descent gate: the textures alone, from the same start
+    two = ("textures",)
+    pt.launches = pt.launches4 = 0
+    rec2, losses2 = optim.recover(start, cam, opts, target, fields=two, steps=4,
+                                  learning_rate=3e-2, seed=7)
+    torch.cuda.synchronize()
+    launches2 = pt.launches4
+    launches["binary"] += pt.launches
+    launches["bvh4"] += pt.launches4
+    with torch.no_grad():
+        loss_two = float(loss_fn(optim.extract_params(rec2, two), rec2, key, 0))
+    print(f"  loss on the same samples (key 7, offset 0): {loss_start:.6e} at the start; after 4 "
+          f"steps {loss_end:.6e} with {fields}, {loss_two:.6e} with {two} (per-step losses "
+          f"{[f'{x:.4e}' for x in losses2]}, launches bvh4 {launches2})", flush=True)
+    if not (all(np.isfinite(losses)) and all(rec["finite"]) and np.isfinite(loss_end)
+            and loss_two < loss_start and contained and moved > 0 and same[True]
+            and launches["bvh4"] > 0):
+        raise AssertionError("phase 6c failed a gate")
+    return launches, {"ms_per_step": total, "forward_ms": fwd, "backward_ms": bwd,
+                      "adam_ms": rec["adam"], "refit_ms": rec["refit"], "pack_ms": rec["pack"],
+                      "losses": losses, "peak_gib": peak / 2**30,
+                      "loss_start": loss_start, "loss_end": loss_end, "loss_two": loss_two,
+                      "det_ms": ms[True], "nondet_ms": ms[False],
+                      "nondet_bit_equal": same[False]}
+
+
+def _phase6d(torch, ttt):
+    """Phase 6d: test_grad_albedo_matches_fd's setup (12x12, 8 spp, 2
+    bounces, DIRECT, no jitter, no roulette) on CPU tensors and on CUDA
+    tensors: d loss / d wall albedo and the (attrs, emissive) gradient
+    arrays, within 1e-3 relative. Returns the largest relative difference."""
+    from terra_tpu_torch import optim
+    from terra_tpu_torch.ops import rng
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        scene = ttt.scenes.cornell_box(device=dev)
+        cam = ttt.scenes.cornell_camera(device=dev)
+        opts = ttt.RenderOptions(width=12, height=12, samples_per_pixel=8, bounces=2,
+                                 integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.0,
+                                 rr_start_bounce=10)
+        with torch.no_grad():
+            target = 0.5 * optim.render_mean_image(scene, cam, opts, rng.key_from_seed(1), 0, 8)
+        x = torch.tensor(0.73, device=dev, requires_grad=True)
+        attrs = scene.materials.attrs.clone()
+        attrs[0, 0, :] = x
+        img = optim.render_mean_image(optim.inject_params(scene, {"attrs": attrs}), cam, opts,
+                                      rng.key_from_seed(0), 0, 8)
+        (gx,) = torch.autograd.grad(torch.mean((img - target) ** 2), [x])
+        params = optim._trainable(optim.extract_params(scene, ("attrs", "emissive")))
+        _, grads = optim.value_and_grad(optim.make_loss_fn(cam, opts, target), params, scene,
+                                        rng.key_from_seed(0), 0)
+        res[dev] = [gx.detach().cpu().double()] + [g.detach().cpu().double() for g in grads]
+    rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(res["cuda"], res["cpu"])]
+    print(f"phase 6d: cpu vs cuda gradients (12x12x8spp Cornell, DIRECT): d loss / d albedo "
+          f"{float(res['cpu'][0]):.6e} vs {float(res['cuda'][0]):.6e}; largest relative "
+          f"difference: albedo scalar {rels[0]:.3e}, attrs array {rels[1]:.3e}, emissive array "
+          f"{rels[2]:.3e} (gate 1e-3)", flush=True)
+    if max(rels) > 1e-3:
+        raise AssertionError("cpu and cuda gradients differ beyond 1e-3")
+    return max(rels)
+
+
 PROBE_ENTRIES = {  # body -> (module, function) of its terra_tpu_torch.scripts entry point
     "smem_dma/hbm_to_smem": ("smem_dma_probe", "probe_hbm_to_smem"),
     "smem_dma/hbm_to_smem_i32_loop": ("smem_dma_probe", "probe_hbm_to_smem_i32_loop"),
@@ -792,21 +1228,28 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(4) as ex:
+    # the traversal kernels also with a 64-entry stack, for phase 2c's A/B
+    with ThreadPoolExecutor(6) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in
                 (("bvh_traverse", pt.load_kernel), ("bvh4_traverse", pt.load_kernel4),
+                 ("bvh_traverse cap 64", functools.partial(pt.load_kernel, 64)),
+                 ("bvh4_traverse cap 64", functools.partial(pt.load_kernel4, 64)),
                  ("pattern_probes", probes.load_kernel), ("terra_native", native.load))}
         build_s = {name: f.result() for name, f in futs.items()}
-    print(f"phase 1: built bvh_traverse (nvcc sm_90a) in {build_s['bvh_traverse']:.2f} s, "
-          f"bvh4_traverse (nvcc sm_90a) in {build_s['bvh4_traverse']:.2f} s, "
-          f"pattern_probes (nvcc sm_90a) in {build_s['pattern_probes']:.2f} s, "
-          f"terra_native (g++) in {build_s['terra_native']:.2f} s, in parallel", flush=True)
+    print("phase 1: built, in parallel, " + ", ".join(
+        f"{name} ({'g++' if name == 'terra_native' else 'nvcc sm_90a'}) in {sec:.2f} s"
+        for name, sec in build_s.items()), flush=True)
     footprint = {
         name: _print_footprints(name, _build.build_log(path), params)
         for name, path, params in (
-            ("bvh_traverse", pt.kernel_path(), "ALGO, HAS_TMAX, ANY_HIT"),
-            ("bvh4_traverse", pt.kernel4_path(), "ALGO, HAS_TMAX, ANY_HIT, ENC, PAGED, COUNT"),
+            ("bvh_traverse", pt.kernel_path(), f"ALGO, HAS_TMAX, ANY_HIT; {pt.STACK_CAP}-entry "
+             "stack"),
+            ("bvh4_traverse", pt.kernel4_path(), "ALGO, HAS_TMAX, ANY_HIT, ENC, PAGED, COUNT; "
+             f"{pt.STACK_CAP}-entry stack"),
             ("pattern_probes", probes.kernel_path(), "one per site"))}
+    footprint64 = {
+        name: _print_footprints(f"{name} (cap 64)", _build.build_log(path(64)), "64-entry stack")
+        for name, path in (("bvh_traverse", pt.kernel_path), ("bvh4_traverse", pt.kernel4_path))}
     _sass_check(probes, probes.kernel_path())
 
     # 2. binary-kernel gate on the full courtyard
@@ -862,10 +1305,10 @@ def main() -> None:
     print(f"phase 2b: 1M courtyard built on the host and committed to cuda in {t_mega:.2f} s "
           f"({mega.geometry.num_triangles} tris, {mega.bvh.num_leaves} leaves, depth "
           f"{mega.bvh.depth})", flush=True)
-    gate4 = {}
+    gate4, binary_camera = {}, {}
     max_err4 = 0.0
     for label, sc, seed in (("courtyard 242k", scene, 11), ("courtyard 1M", mega, 12)):
-        gate4[label], err = _bvh4_gate(torch, pt, sc, label, cam, dev, seed)
+        gate4[label], err, binary_camera[label] = _bvh4_gate(torch, pt, sc, label, cam, dev, seed)
         max_err4 = max(max_err4, err)
     starts = {label: _start_gate(torch, pt, sc, label, dev, seed)
               for label, sc, seed in (("courtyard 242k", scene, 21), ("courtyard 1M", mega, 22))}
@@ -875,6 +1318,8 @@ def main() -> None:
             max_err4 = max(max_err4, v["max_abs_err"])
             if kind != "binary":
                 gate4[label][f"start_links/{kind}"] = v
+    deep = _deep_gate(torch, ttt, pt, dev, footprint)
+    max_err, max_err4 = max(max_err, deep["bvh_traverse"]), max(max_err4, deep["bvh4_traverse"])
 
     # 2c. the traversal kernels on the batches the renders send them:
     # config 3b (below) and config 3g (the full-material render at bench
@@ -899,6 +1344,8 @@ def main() -> None:
     bin_3b = pt.pack_tables(bvh, *scene.geometry.corners())
     main_rows = _main_path_phase(torch, pt, batches,
                                  {"3b closest-hit": bin_3b, "3b shadow": bin_3b}, footprint)
+    cap_ab = _cap_ab(torch, pt, batches, {"3b closest-hit": bin_3b, "3b shadow": bin_3b},
+                     footprint64)
     del cap, batches
 
     # 3. the production courtyard render (config 3b)
@@ -996,6 +1443,14 @@ def main() -> None:
     # 5. the pattern probes through their entry points
     probe_rows = _probe_phase(torch)
 
+    # 6. inverse rendering: config 4 (brute force, then BVH trees from both
+    # builders), the courtyard at 3b's size, and a cpu-vs-cuda gradient twin
+    launches6, inverse = _phase6ab(torch, ttt, pt, dev)
+    main_launches.update(launches6)
+    launches6c, inverse["6c"] = _phase6c(torch, ttt, pt, scene, cam, dev)
+    main_launches.update(launches6c)
+    inverse["6d_max_rel"] = _phase6d(torch, ttt)
+
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
     if main_launches["binary"] <= 0 or main_launches["bvh4"] <= 0 or \
@@ -1010,6 +1465,7 @@ def main() -> None:
         """The phase-2c keys of one traversal kernel, per batch."""
         r = main_rows[name]
         return {"main_path_ms": {b: v["ms"] for b, v in r.items()},
+                "stack_ab_ms_cap160_cap64": cap_ab[name],
                 "main_path_bound_ms": {b: v["bound_ms"] for b, v in r.items()},
                 "stack_frame_bytes": max(fp[1] for fp in footprint[name].values()),
                 "smem_per_block": {b: v["smem_per_block"] for b, v in r.items()},
@@ -1022,7 +1478,8 @@ def main() -> None:
          "launches": main_launches["binary"], "max_abs_err": max_err,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": bin_bound[0], "bound_by": bin_bound[1],
          "library_ms": None, "library": walks, **main_path("bvh_traverse"),
-         "modes": {f"{label}/start_links": g["binary"] for label, g in starts.items()}},
+         "modes": {**{f"{label}/start_links": g["binary"] for label, g in starts.items()},
+                   **{f"{label}/camera": v for label, v in binary_camera.items()}}},
         {"name": "bvh4_traverse", "route": "cuda",
          "source": "terra_tpu_torch/csrc/bvh4_traverse.cu",
          "replaces": "terra_tpu/accel/pallas_traverse.py:81",

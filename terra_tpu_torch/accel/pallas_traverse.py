@@ -51,10 +51,12 @@ __all__ = ["Tables", "WideTables", "pack_tables", "pack_tables_wide", "pack_tabl
            "occupancy", "launches",
            "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "PACKET"]
 
-# Per-thread stack entries. The ordered binary DFS holds at most depth + 2
-# entries, the BVH4 walk 3 * wide_depth + 2; the wrappers refuse deeper
-# trees (the 1M-triangle courtyard at leaf 8 needs 23 and 38).
-STACK_CAP = 64
+# Per-thread stack entries, the reference's STACK_DEPTH. The ordered binary
+# DFS holds at most depth + 2 entries, the BVH4 walk 3 * wide_depth + 2;
+# the wrappers refuse deeper trees, as the reference does (the 1M-triangle
+# courtyard at leaf 8 needs 23 and 38). A walk touches only the entries
+# its rays push, so the kernels' local frame costs what a tree uses.
+STACK_CAP = 160
 # The reference's packet size; :func:`raycast` sorts only larger batches,
 # as the reference does.
 PACKET = 1024
@@ -63,8 +65,7 @@ KERNEL_SRC = os.path.join(_CSRC, "bvh_traverse.cu")
 KERNEL4_SRC = os.path.join(_CSRC, "bvh4_traverse.cu")
 COMMON_HDR = os.path.join(_CSRC, "traverse_common.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DTERRA_STACK_CAP={STACK_CAP}"]
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _ALGOS = {"mt": 0, "watertight": 1}
 
 # Bytes per node of each table kind, as the reference prices them: a BVH4
@@ -155,10 +156,12 @@ def _pack_slots(bvh, tri_a, tri_b, tri_c):
     return torch.cat([tri_a[slot], tri_b[slot], tri_c[slot], ids], dim=1).contiguous()
 
 
-def _check_stack(tables: Tables):
+def _check_stack(tables: Tables) -> int:
+    """Stack entries the binary walk of ``tables`` needs (at most STACK_CAP)."""
     if tables.depth + 2 > STACK_CAP:
         raise ValueError(f"BVH depth {tables.depth} needs a {tables.depth + 2}-entry stack; "
                          f"the traversal has {STACK_CAP}. Rebuild with a larger leaf_size.")
+    return tables.depth + 2
 
 
 def _check_rays(o, d, t_max):
@@ -185,9 +188,10 @@ def _check_start(start, n: int, num_nodes: int):
                              f"[0, {num_nodes})")
 
 
-def _seed_stack(n, start, dev):
-    """Per-ray stacks holding one entry: the root, or the start link."""
-    stack = torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev)
+def _seed_stack(n, start, dev, need: int):
+    """Per-ray stacks of the ``need`` entries the tree's walk can hold,
+    holding one entry: the root, or the start link."""
+    stack = torch.zeros((n, need), dtype=torch.int64, device=dev)
     if start is not None:
         stack[:, 0] = start
     return stack, torch.ones((n,), dtype=torch.int64, device=dev)
@@ -263,7 +267,7 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
     walk shares. ``visits``: optional (ni + C,) i32 tensor to which every
     pop adds 1 at the popped id."""
     _check_rays(o, d, t_max)
-    _check_stack(tables)
+    need = _check_stack(tables)
     _check_start(start, o.shape[0], tables.nodes.shape[0])
     isect = leaf_test(algo)
     n = o.shape[0]
@@ -281,7 +285,7 @@ def raycast_plain(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo:
             if visits is not None:
                 visits[0] += n
             return (best_t, best_i, counts) if count else (best_t, best_i)
-        stack, sp = _seed_stack(n, start, dev)
+        stack, sp = _seed_stack(n, start, dev, need)
         live = torch.arange(n, device=dev)
         while live.numel() > 0:
             top = sp[live] - 1
@@ -506,11 +510,13 @@ def pack_tables_auto(bvh, tri_a, tri_b, tri_c):
     return pack_tables(bvh, tri_a, tri_b, tri_c)
 
 
-def _check_stack4(tables: WideTables):
+def _check_stack4(tables: WideTables) -> int:
+    """Stack entries the BVH4 walk of ``tables`` needs (at most STACK_CAP)."""
     need = 3 * tables.wide_depth + 2
     if need > STACK_CAP:
         raise ValueError(f"BVH4 depth {tables.wide_depth} needs a {need}-entry stack; "
                          f"the traversal has {STACK_CAP}. Rebuild with a larger leaf_size.")
+    return need
 
 
 # The reference's 5-exchange sorting network over four (entry, link) pairs
@@ -546,7 +552,7 @@ def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     ``visits``: optional (num_wide + C,) i32 tensor to which every pop adds
     1 at the popped id."""
     _check_rays(o, d, t_max)
-    _check_stack4(tables)
+    need = _check_stack4(tables)
     _check_start(start, o.shape[0], _wide_nodes(tables))
     isect = leaf_test(algo)
     n = o.shape[0]
@@ -558,7 +564,7 @@ def raycast4_plain(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
         best_t = t_max.clone() if t_max is not None else torch.full((n,), T_FAR, device=dev)
         best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
         counts = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-        stack, sp = _seed_stack(n, start, dev)
+        stack, sp = _seed_stack(n, start, dev, need)
         live = torch.arange(n, device=dev)
         while live.numel() > 0:
             top = sp[live] - 1
@@ -617,9 +623,10 @@ def count_decode(steps) -> dict:
 
 
 @functools.cache
-def load_kernel() -> ctypes.CDLL:
-    """Build ``csrc/bvh_traverse.cu`` (once per source/flag hash) and load it."""
-    lib = ctypes.CDLL(kernel_path())
+def load_kernel(stack_cap: int = STACK_CAP) -> ctypes.CDLL:
+    """Build ``csrc/bvh_traverse.cu`` with a ``stack_cap``-entry stack (once
+    per source/flag hash) and load it."""
+    lib = ctypes.CDLL(kernel_path(stack_cap))
     p = ctypes.c_void_p
     lib.terra_bvh_raycast.restype = ctypes.c_int
     lib.terra_bvh_raycast.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64] + \
@@ -629,15 +636,20 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
-def kernel_path() -> str:
+def _nvcc_cmd(stack_cap: int) -> list:
+    return [nvcc(), *NVCC_FLAGS, f"-DTERRA_STACK_CAP={stack_cap}"]
+
+
+def kernel_path(stack_cap: int = STACK_CAP) -> str:
     """Path of the built binary-tree kernel library (builds it if needed)."""
-    return build_shared([nvcc(), *NVCC_FLAGS], [KERNEL_SRC], "bvh_traverse", deps=[COMMON_HDR])
+    return build_shared(_nvcc_cmd(stack_cap), [KERNEL_SRC], "bvh_traverse", deps=[COMMON_HDR])
 
 
 @functools.cache
-def load_kernel4() -> ctypes.CDLL:
-    """Build ``csrc/bvh4_traverse.cu`` (once per source/flag hash) and load it."""
-    lib = ctypes.CDLL(kernel4_path())
+def load_kernel4(stack_cap: int = STACK_CAP) -> ctypes.CDLL:
+    """Build ``csrc/bvh4_traverse.cu`` with a ``stack_cap``-entry stack (once
+    per source/flag hash) and load it."""
+    lib = ctypes.CDLL(kernel4_path(stack_cap))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.terra_bvh4_raycast.restype = ctypes.c_int
     lib.terra_bvh4_raycast.argtypes = [p] * 9 + [ctypes.c_int64] + [i] * 6 + [p] * 4
@@ -646,10 +658,9 @@ def load_kernel4() -> ctypes.CDLL:
     return lib
 
 
-def kernel4_path() -> str:
+def kernel4_path(stack_cap: int = STACK_CAP) -> str:
     """Path of the built BVH4 kernel library (builds it if needed)."""
-    return build_shared([nvcc(), *NVCC_FLAGS], [KERNEL4_SRC], "bvh4_traverse",
-                        deps=[COMMON_HDR])
+    return build_shared(_nvcc_cmd(stack_cap), [KERNEL4_SRC], "bvh4_traverse", deps=[COMMON_HDR])
 
 
 def _check_cuda(ins, name):

@@ -15,7 +15,10 @@ wavefront-wide and each lane selects its material's result by mask:
            transmitted continuation (``continuation_factors``).
 
 Same formulas and operation order as the reference; results agree up to
-the rounding of each backend's elementwise kernels (pow, sin, cos).
+the rounding of each backend's elementwise kernels (pow, sin, cos). The
+samplers' ``sqrt(max(1 - c^2, 0))`` take ``math3.safe_sqrt``: the same
+values, and a gradient of 0 where a sample at the lobe's pole rounds the
+root to 0, where the reference's gradient is inf.
 """
 from __future__ import annotations
 
@@ -86,7 +89,7 @@ def _phong_sample(surface: Surface, e1, e2, e3, wo):
     n_exp = surface.attrs[..., ATTR.PHONG_SPECULAR_INTENSITY, 0]
     phi = 2.0 * PI * e1
     cos_theta = torch.pow(torch.clamp(1.0 - e2, min=0.0), 1.0 / (n_exp + 1.0))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = math3.safe_sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     local = torch.stack([sin_theta * torch.cos(phi), cos_theta, sin_theta * torch.sin(phi)],
                         dim=-1)
     wi_s = _unit_world(local, t, wr, b)
@@ -161,7 +164,7 @@ def _ggx_sample(surface: Surface, e1, e2, e3, wo):
     wi_d = _cosine_hemisphere(surface, e1, e2)
     tan_theta = alpha * torch.sqrt(e1) / torch.sqrt(torch.clamp(1.0 - e1, min=1e-8))
     cos_theta = torch.reciprocal(torch.sqrt(1.0 + tan_theta * tan_theta))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = math3.safe_sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     phi = 2.0 * PI * e2
     local_h = torch.stack([sin_theta * torch.cos(phi), cos_theta, sin_theta * torch.sin(phi)],
                           dim=-1)
@@ -319,8 +322,8 @@ def _disney_sample(surface: Surface, e0, e1, e2, wo):
     wi_s = math3.normalize(math3.reflect(wo, h_spec))
     a2 = a_clear * a_clear
     cos2 = (1.0 - torch.pow(a2, 1.0 - e0)) / torch.clamp(1.0 - a2, min=1e-7)
-    cos_t = torch.sqrt(torch.clamp(cos2, 0.0, 1.0))
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos2, min=0.0))
+    cos_t = math3.safe_sqrt(torch.clamp(cos2, 0.0, 1.0))
+    sin_t = math3.safe_sqrt(torch.clamp(1.0 - cos2, min=0.0))
     local_h = torch.stack([sin_t * torch.cos(phi), cos_t, sin_t * torch.sin(phi)], dim=-1)
     wi_c = math3.normalize(math3.reflect(wo, _unit_world(local_h, tx, n, bz)))
     return torch.where((e2 < p_diff)[..., None], wi_d,
@@ -381,7 +384,7 @@ def _glass_geometry(surface: Surface, wo):
     refl = math3.normalize(math3.reflect(wo, n_eff))
     cos_t2 = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
     tir = cos_t2 < 0.0
-    cos_t = torch.sqrt(torch.clamp(cos_t2, min=0.0))
+    cos_t = math3.safe_sqrt(torch.clamp(cos_t2, min=0.0))
     tbase = torch.where(eta <= 1.0, cos_i, cos_t)
     r0 = (1.0 - ior) / (1.0 + ior)
     r0 = r0 * r0

@@ -1,10 +1,12 @@
-"""Host-side SAH BVH build through the native C++ source of ``terra_tpu``.
+"""Host-side BVH builds through native C++ (ctypes).
 
-The builder source ``terra_tpu/native/terra_native.cpp`` is shared with the
-JAX package and read by path (importing ``terra_tpu`` would import JAX). It
-is compiled with g++ at first use into this package's ``_build`` directory
-with the flags the JAX package uses, so both packages build the same trees.
-A missing compiler or a failed build raises; there is no NumPy fallback.
+``terra_native.cpp`` beside this file is a copy of the JAX package's
+builder source with the same code (its comments differ in one path), so
+both packages build the same trees from the same positions (the SAH and
+LBVH twins in ``tests/test_torch_scene.py`` and ``tests/test_torch_lbvh.py``
+hold the arrays equal). It is compiled with g++ at first use into this
+package's ``_build`` directory, with the flags the JAX package uses. A
+missing compiler or a failed build raises; there is no NumPy fallback.
 """
 from __future__ import annotations
 
@@ -16,15 +18,15 @@ import numpy as np
 
 from .._build import build_shared
 
-__all__ = ["load", "sah_build"]
+__all__ = ["load", "sah_build", "lbvh_build"]
 
-SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "terra_tpu", "native", "terra_native.cpp")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "terra_native.cpp")
 CXX_CMD = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
 
 _P32 = ctypes.POINTER(ctypes.c_int32)
 _PF = ctypes.POINTER(ctypes.c_float)
+_BUILD_ARGS = [_PF, ctypes.c_int64, _P32, ctypes.c_int64, ctypes.c_int,
+               _P32, _P32, _P32, _PF, _PF, _P32, _P32, _P32]
 
 
 @functools.cache
@@ -32,11 +34,9 @@ def load() -> ctypes.CDLL:
     """Build (once per source/flag hash) and load the native library."""
     lib = ctypes.CDLL(build_shared(CXX_CMD, [SRC], "terra_native"))
     lib.terra_sah_build.restype = ctypes.c_int
-    lib.terra_sah_build.argtypes = [
-        _PF, ctypes.c_int64, _P32, ctypes.c_int64, ctypes.c_int,
-        _P32, _P32, _P32, _PF, _PF, _P32, _P32, _P32,
-        ctypes.POINTER(ctypes.c_int64),
-    ]
+    lib.terra_sah_build.argtypes = _BUILD_ARGS + [ctypes.POINTER(ctypes.c_int64)]
+    lib.terra_lbvh_build.restype = ctypes.c_int
+    lib.terra_lbvh_build.argtypes = _BUILD_ARGS
     return lib
 
 
@@ -44,44 +44,66 @@ def _ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+def _buffers(t: int, c: int, leaf_size: int) -> dict:
+    """Output arrays for a tree of at most ``c`` leaves over ``t`` triangles."""
+    nn = 2 * c - 1
+    return dict(leaf_tri=np.zeros((c, leaf_size), np.int32),
+                left=np.zeros((max(c - 1, 1),), np.int32),
+                right=np.zeros((max(c - 1, 1),), np.int32),
+                box_min=np.zeros((nn, 3), np.float32), box_max=np.zeros((nn, 3), np.float32),
+                dfs_next=np.zeros((nn,), np.int32), dfs_skip=np.zeros((nn,), np.int32),
+                tri_order=np.zeros((t,), np.int32))
+
+
+def _call(fn, positions, tri_vidx, leaf_size: int, out: dict, *extra) -> int:
+    positions = np.ascontiguousarray(positions, np.float32)
+    tri_vidx = np.ascontiguousarray(tri_vidx, np.int32)
+    i32, f32 = ctypes.c_int32, ctypes.c_float
+    return fn(
+        _ptr(positions, f32), len(positions), _ptr(tri_vidx, i32), len(tri_vidx), leaf_size,
+        _ptr(out["leaf_tri"], i32), _ptr(out["left"], i32), _ptr(out["right"], i32),
+        _ptr(out["box_min"], f32), _ptr(out["box_max"], f32),
+        _ptr(out["dfs_next"], i32), _ptr(out["dfs_skip"], i32),
+        _ptr(out["tri_order"], i32), *extra)
+
+
+def _trim(out: dict, c: int) -> dict:
+    """The arrays of a tree of ``c`` leaves: internal nodes ``c - 1``, then
+    the unified id space of ``2c - 1`` nodes."""
+    ni, nn = c - 1, 2 * c - 1
+    return dict(leaf_tri=out["leaf_tri"][:c], left=out["left"][:ni], right=out["right"][:ni],
+                box_min=out["box_min"][:nn], box_max=out["box_max"][:nn],
+                dfs_next=out["dfs_next"][:nn], dfs_skip=out["dfs_skip"][:nn],
+                tri_order=out["tri_order"], num_leaves=c)
+
+
 def sah_build(positions: np.ndarray, tri_vidx: np.ndarray, leaf_size: int) -> dict:
     """Binned-SAH build (16 bins x 3 axes; leaves hold [leaf_size/2,
     leaf_size] triangles, padded by repeating the last one).
 
     Returns numpy arrays: leaf_tri (C, L), left/right (C-1,), box_min/max
-    (2C-1, 3) in the unified id space (internal nodes, then leaves),
-    tri_order (T,), and num_leaves C.
+    (2C-1, 3) and dfs_next/dfs_skip (2C-1,) in the unified id space
+    (internal nodes, then leaves), tri_order (T,), and num_leaves C.
     """
-    lib = load()
-    positions = np.ascontiguousarray(positions, np.float32)
-    tri_vidx = np.ascontiguousarray(tri_vidx, np.int32)
     t = len(tri_vidx)
-    c_max = max(2 * ((t + leaf_size - 1) // leaf_size), 1)
-    nn_max = 2 * c_max - 1
-    leaf_tri = np.zeros((c_max, leaf_size), np.int32)
-    left = np.zeros((c_max - 1 or 1,), np.int32)
-    right = np.zeros((c_max - 1 or 1,), np.int32)
-    box_min = np.zeros((nn_max, 3), np.float32)
-    box_max = np.zeros((nn_max, 3), np.float32)
-    dfs_next = np.zeros((nn_max,), np.int32)
-    dfs_skip = np.zeros((nn_max,), np.int32)
-    tri_order = np.zeros((t,), np.int32)
+    out = _buffers(t, max(2 * ((t + leaf_size - 1) // leaf_size), 1), leaf_size)
     num_leaves = ctypes.c_int64()
-    rc = lib.terra_sah_build(
-        _ptr(positions, ctypes.c_float), len(positions),
-        _ptr(tri_vidx, ctypes.c_int32), t, leaf_size,
-        _ptr(leaf_tri, ctypes.c_int32),
-        _ptr(left, ctypes.c_int32), _ptr(right, ctypes.c_int32),
-        _ptr(box_min, ctypes.c_float), _ptr(box_max, ctypes.c_float),
-        _ptr(dfs_next, ctypes.c_int32), _ptr(dfs_skip, ctypes.c_int32),
-        _ptr(tri_order, ctypes.c_int32), ctypes.byref(num_leaves),
-    )
+    rc = _call(load().terra_sah_build, positions, tri_vidx, leaf_size, out,
+               ctypes.byref(num_leaves))
     if rc != 0:
         raise RuntimeError(f"terra_sah_build failed (rc={rc}, tris={t}, leaf_size={leaf_size})")
-    c = int(num_leaves.value)
-    ni = c - 1
-    return dict(
-        leaf_tri=leaf_tri[:c], left=left[:ni], right=right[:ni],
-        box_min=box_min[:ni + c], box_max=box_max[:ni + c],
-        tri_order=tri_order, num_leaves=c,
-    )
+    return _trim(out, int(num_leaves.value))
+
+
+def lbvh_build(positions: np.ndarray, tri_vidx: np.ndarray, leaf_size: int) -> dict:
+    """Morton-cluster LBVH: triangles sorted by the Morton code of their
+    centroid, runs of ``leaf_size`` made leaves (the last padded by
+    repetition), a Karras radix tree over the leaves. Returns the arrays of
+    :func:`sah_build`; C is ceil(T / leaf_size)."""
+    t = len(tri_vidx)
+    c = (t + leaf_size - 1) // leaf_size
+    out = _buffers(t, max(c, 1), leaf_size)
+    rc = _call(load().terra_lbvh_build, positions, tri_vidx, leaf_size, out)
+    if rc != 0:
+        raise RuntimeError(f"terra_lbvh_build failed (rc={rc}, tris={t}, leaf_size={leaf_size})")
+    return _trim(out, c)

@@ -10,7 +10,7 @@ import torch
 
 __all__ = [
     "dot", "cross", "length", "sqlen", "normalize", "lerp", "luminance",
-    "reflect", "max3", "build_basis", "to_local", "to_world",
+    "reflect", "max3", "build_basis", "to_local", "to_world", "safe_sqrt",
 ]
 
 EPS = 1e-4
@@ -39,6 +39,28 @@ def length(a):
 def normalize(a, eps: float = 1e-20):
     """Safe normalize; ``eps`` guards the zero vector."""
     return a * torch.reciprocal(torch.sqrt(torch.clamp(sqlen(a), min=eps)))[..., None]
+
+
+class _SafeSqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0.0, grad * 0.5 / y, 0.0)
+
+
+def safe_sqrt(x):
+    """``torch.sqrt`` (the same bits) whose gradient is 0 where the root is
+    0, not inf. The samplers' ``sqrt(max(1 - c^2, 0))`` rounds to exactly 0
+    for a sample within ~1e-6 of the pole, and there the plain derivative,
+    in ``jax.grad`` as in torch, is inf: one such lane in a million made a
+    whole roughness gradient inf."""
+    return _SafeSqrt.apply(x)
 
 
 def lerp(a, b, t):

@@ -9,6 +9,14 @@ threefry stream keyed by (pixel, sample, bounce, stream), so they replay
 the JAX renderer's decisions exactly. Loops that JAX compiles
 (``lax.scan``, ``lax.while_loop``) are Python loops here; PyTorch runs
 eagerly on the device of the scene's tensors.
+
+Gradients: :func:`trace` records autograd when its caller has it on, so a
+loss on its radiance reaches the scene's positions, attributes, emission,
+textures and the camera through the differentiable surface recompute
+(``surface.py``); the raycast's hit choice carries none, as in the
+reference. :func:`trace_persistent` is a ``lax.while_loop`` in the
+reference, which JAX cannot reverse-differentiate, so it refuses inputs
+that require gradients. :func:`render` never records a graph.
 """
 from __future__ import annotations
 
@@ -46,8 +54,11 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
     the previous hit's triangle per lane, through the leaf-of-triangle
     table built once here), or by octant keys when no hint is given."""
     algo = "watertight" if opts.intersector == Intersector.WATERTIGHT else "mt"
+    # the hit choice carries no gradient: tables come from detached corners,
+    # so no graph is recorded over them
+    corners = [c.detach() for c in scene.geometry.corners()]
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
-        tables = pallas_traverse.pack_tables_auto(scene.bvh, *scene.geometry.corners())
+        tables = pallas_traverse.pack_tables_auto(scene.bvh, *corners)
         leaf_of = traverse.leaf_of_tri_table(scene.bvh)
 
         def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
@@ -58,7 +69,7 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
 
         return raycast
 
-    tri_a, tri_b, tri_c = scene.geometry.corners()
+    tri_a, tri_b, tri_c = corners
 
     def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
         o = o + d * intersect.RAY_OFFSET_DIR
@@ -152,10 +163,10 @@ def _context(scene: Scene, opts: RenderOptions):
                 has_delta=any(t in present for t in bsdf.DELTA_TYPES))
 
 
-@torch.no_grad()
 def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
     """Trace a wavefront of primary rays for ``bounces + 1`` bounces.
-    Returns (N, 3) f32 radiance per lane."""
+    Returns (N, 3) f32 radiance per lane, differentiable in the scene's
+    tensors and the rays when autograd is on."""
     ctx_base = _context(scene, opts)
     integrator = make_integrator(opts.integrator)
     streams = _streams_for(opts.integrator, opts.env_nee)
@@ -192,7 +203,16 @@ def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
     return lo
 
 
-@torch.no_grad()
+def _wants_grad(scene: Scene, cam: Camera) -> bool:
+    """Autograd is on and a scene or camera tensor requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    g, m = scene.geometry, scene.materials
+    return any(t.requires_grad for t in (
+        g.positions, g.normals, g.uvs, m.attrs, m.emissive, m.ior, scene.textures.data,
+        scene.env_value, cam.position, cam.direction, cam.up, cam.fov_deg))
+
+
 def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_idx, px, py,
                      sample_base, quota: int):
     """Persistent lanes: each lane traces ``quota`` samples of its pixel
@@ -200,7 +220,19 @@ def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_
     same estimator as :func:`trace`; only the order in which samples are
     summed differs. The loop runs at most ``quota * (bounces + 1)`` times
     and reads one flag from the device per iteration. Returns (N, 3)
-    radiance sums over each lane's quota."""
+    radiance sums over each lane's quota. It has no gradient (the
+    reference's while loop has none either): a scene or camera tensor that
+    requires one raises."""
+    if _wants_grad(scene, cam):
+        raise RuntimeError(
+            "trace_persistent has no gradient (a while loop in the reference); render "
+            "with samples_per_lane=1 to differentiate")
+    with torch.no_grad():
+        return _trace_persistent(scene, opts, cam, key, pixel_idx, px, py, sample_base, quota)
+
+
+def _trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_idx, px, py,
+                      sample_base, quota: int):
     ctx_base = _context(scene, opts)
     integrator = make_integrator(opts.integrator)
     streams = _streams_for(opts.integrator, opts.env_nee)
@@ -333,11 +365,15 @@ def _validate_acc(acc, where: str):
             f"pixel rows {rows[:8].tolist()}{'...' if len(rows) > 8 else ''}")
 
 
+@torch.no_grad()
 def render(scene: Scene, cam: Camera, opts: RenderOptions, seed: int = 0,
            film: Optional[Film] = None) -> Film:
     """Progressive render on the scene's device: adds
     ``opts.samples_per_pixel`` samples to ``film`` (a new one if None).
-    Pass the returned film back in to keep accumulating."""
+    Pass the returned film back in to keep accumulating. The film adds in
+    the reference's order: banded frames chunk by chunk and band by band;
+    otherwise (without ``debug_checks``) the full chunks are summed from
+    zero and that sum is added once, then the remainder chunk."""
     if film is None:
         film = Film.create(opts.width, opts.height, scene.device)
     key = rng_mod.key_from_seed(seed)
@@ -351,15 +387,32 @@ def render(scene: Scene, cam: Camera, opts: RenderOptions, seed: int = 0,
             f"(min={int(film.samples.min())}, max={base}); render missing "
             "regions separately or reset the film")
     band = _band_rows(opts, chunk)
-    acc = film.acc.clone()
+    h = opts.height
     done = 0
+    if band < h:
+        while done < spp:
+            cur = min(chunk, spp - done)
+            acc = film.acc.clone()
+            for b0 in range(0, h, band):
+                part = render_rows(scene, cam, opts, key, base + done, cur, b0, band)
+                if opts.debug_checks:
+                    _validate_acc(part, f"chunk at sample offset {base + done}, rows from {b0}")
+                acc[b0:b0 + band] = acc[b0:b0 + band] + part
+            film = Film(acc=acc, samples=film.samples + cur)
+            done += cur
+        return film
+    n_full = spp // chunk
+    if n_full > 1 and not opts.debug_checks:
+        acc = torch.zeros_like(film.acc)
+        for i in range(n_full):
+            acc = acc + render_rows(scene, cam, opts, key, base + i * chunk, chunk, 0, h)
+        film = Film(acc=film.acc + acc, samples=film.samples + n_full * chunk)
+        done = n_full * chunk
     while done < spp:
         cur = min(chunk, spp - done)
-        for b0 in range(0, opts.height, band):
-            rows = min(band, opts.height - b0)
-            part = render_rows(scene, cam, opts, key, base + done, cur, b0, rows)
-            if opts.debug_checks:
-                _validate_acc(part, f"chunk at sample offset {base + done}, rows from {b0}")
-            acc[b0:b0 + rows] += part
+        acc = render_rows(scene, cam, opts, key, base + done, cur, 0, h)
+        if opts.debug_checks:
+            _validate_acc(acc, f"chunk at sample offset {base + done}")
+        film = Film(acc=film.acc + acc, samples=film.samples + cur)
         done += cur
-    return Film(acc=acc, samples=film.samples + spp)
+    return film

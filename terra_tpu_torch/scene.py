@@ -268,7 +268,9 @@ def _np(t):
 def build_light_table(geometry: Geometry, materials: MaterialTable,
                       capacity: Optional[int] = None) -> LightTable:
     """Scan triangles whose material has nonzero constant emissive (host
-    NumPy, as the reference) into the flattened light table."""
+    NumPy, as the reference) into the flattened light table. Its tensors
+    carry no gradient, as in the reference: an emission gradient reaches
+    ``materials.emissive`` through the shaded surface only."""
     device = geometry.positions.device
     mat_id = _np(geometry.mat_id)
     tri_emissive = _np(materials.emissive)[mat_id]
@@ -305,16 +307,18 @@ def build_light_table(geometry: Geometry, materials: MaterialTable,
 def commit(geometry: Geometry, materials: MaterialTable,
            textures: Optional[TextureAtlas] = None, env_value=(0.0, 0.0, 0.0),
            env_tex: int = -1, accelerator: Accelerator = Accelerator.BRUTE,
-           light_capacity: Optional[int] = None, leaf_size: Optional[int] = None) -> Scene:
+           light_capacity: Optional[int] = None, leaf_size: Optional[int] = None,
+           bvh_builder: str = "sah") -> Scene:
     """Build a committed :class:`Scene` on the geometry's device: light
     table, static material metadata and, for ``Accelerator.BVH``, the
-    native SAH tree (``leaf_size`` defaults to ``lbvh.DEFAULT_LEAF_SIZE``)."""
+    native tree of ``bvh_builder`` ("sah", binned SAH, or "lbvh", Morton;
+    ``leaf_size`` defaults to ``lbvh.DEFAULT_LEAF_SIZE``)."""
     device = geometry.positions.device
     bvh = None
     if accelerator == Accelerator.BVH:
         from .accel import lbvh
 
-        bvh = lbvh.build(geometry, leaf_size=leaf_size)
+        bvh = lbvh.build(geometry, leaf_size=leaf_size, builder=bvh_builder)
     used = np.unique(_np(materials.bsdf_type)[np.unique(_np(geometry.mat_id))])
     attr_tex_np = _np(materials.attr_tex)
     tex_slots = tuple(s for s in range(attr_tex_np.shape[1]) if np.any(attr_tex_np[:, s] >= 0))

@@ -2,11 +2,13 @@
 
 The raycast returns only triangle ids. Everything continuous (hit
 distance, position, barycentrics, normal, uv, material attributes) is
-recomputed here from the vertex data. All per-triangle, per-material and
-per-light data is packed into row tables built once per trace, and each
-lane fetches one row with a plain index gather. (The JAX package fetches
-small tables by a one-hot matmul for the TPU's matrix unit; under TF32 that
-would quantize the table values, so the port never does.)
+recomputed here from the vertex data, differentiably, so gradients reach
+the positions, attributes, emission and textures. All per-triangle,
+per-material and per-light data is packed into row tables built once per
+trace, and each lane fetches one row with a plain index gather. (The JAX
+package fetches small tables by a one-hot matmul for the TPU's matrix
+unit; under TF32 that would quantize the table values, so the port never
+does.)
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ def build_shade_tables(scene: Scene) -> ShadeTables:
     luv = uv[lti]
     area = 0.5 * math3.length(math3.cross(lb - la, lc - la))
     etid = mats.emissive_tex[lt.mat_id.long()].to(f)
+    # lt.emissive is the commit-time NumPy copy, outside the gradient as in
+    # the reference; emission gradients arrive through the surface's
+    # material rows only. Corners and area are differentiable.
     light = torch.cat([la, lb, lc, ln[:, 0], ln[:, 1], ln[:, 2], luv[:, 0], luv[:, 1], luv[:, 2],
                        area[:, None], lt.emissive, lt.tri_idx.to(f)[:, None], etid[:, None]], dim=1)
     return ShadeTables(tri=tri, mat=mat, light=light)

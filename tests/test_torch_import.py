@@ -32,3 +32,17 @@ def test_no_source_imports_jax_or_reference():
     assert sources
     offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_no_source_reads_reference_files():
+    """The port builds from its own sources: no module names a path inside
+    the JAX package (its native builder source is the port's own copy)."""
+    pattern = re.compile(r"""["']terra_tpu["']""")
+    sources = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
+    def code(path):
+        return [ln for ln in path.read_text().splitlines() if not ln.lstrip().startswith("//")]
+
+    assert code(PKG / "native" / "terra_native.cpp") == \
+        code(ROOT / "terra_tpu" / "native" / "terra_native.cpp")

@@ -99,6 +99,7 @@ def _bad_inputs(case, ts):
         return tpt.raycast, (ts, o, d, torch.ones(63)), ValueError
     if case == "device":  # the CUDA wrapper refuses CPU tensors, never falls back
         return tpt.raycast_cuda, (tables, o, d), ValueError
+    assert tpt.STACK_CAP == jpt.STACK_DEPTH  # the reference's stack depth
     tables.depth = tpt.STACK_CAP
     return tpt.raycast_plain, (tables, o, d), ValueError
 
