@@ -90,7 +90,23 @@ exits non-zero (there is no CPU fallback):
      bit (deterministic algorithms on; also timed and compared off), and
      the loss on fixed samples falls under a textures-only recover; 6d the
      12x12 gradient of ``test_grad_albedo_matches_fd`` on CPU and CUDA
-     tensors within 1e-3.
+     tensors within 1e-3;
+  7. the command line at full width: 7a the 242k courtyard written as OBJ +
+     MTL + two PNG textures (z negated, faces wound (v0, v2, v1), floats as
+     %.9g, texels as round(255 v^(1/2.2))) and read back by
+     ``io.obj.load_obj`` on the card, each stage timed (directive scan,
+     native parse, atlas, commit with the SAH build); every array must
+     come back bit-equal, the tree too, the texels within 8-bit sRGB
+     steps; 7b ``python3 -m terra_tpu_torch render courtyard.obj`` in a
+     subprocess at 3b's settings (``--passes 2 --checkpoint --stats -o
+     out.png``; both passes logged, a 384x384 PNG, a finite 16-spp film,
+     the stats report), then ``--resume --passes 1`` to 24 spp, with the
+     kernels found built in ``_build/``; 7c ``cli.main`` in this process
+     with the same arguments: its film bit-equal to 7b's, traversal
+     launches per pass, the render clock, nominal rays/s, the CLI's own
+     time and peak memory per pass beside phase 3's 3b render; 7d the CLI
+     with ``--device cpu`` and on the card on a small courtyard (golden
+     twin budgets), and ``console`` on the card with a scripted stdin.
 
 Phase 1 also builds both traversal kernels with the earlier 64-entry stack;
 phase 2b gates both kernels on a 1,700-triangle tree whose BVH4 walk needs
@@ -102,8 +118,8 @@ renders of phases 3, 3m and 3g, the sorted ``traverse_packed`` in phase
 3m, the compact bench of phase 3c, the CUDA half of each twin in phase 4
 (the binary kernel is on it only there, since ``wide_mode`` picks the
 BVH4 overlay for both courtyards), the probe entry points of phase 5 and
-the training steps and ``recover`` runs of phase 6.
-Each is run with the launch counts set to 0 and read after; launches that
+the training steps and ``recover`` runs of phase 6, and the in-process
+command lines of phase 7 (7c and the CUDA half of 7d). Each is run with the launch counts set to 0 and read after; launches that
 compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
 object describing the kernels (with each one's least time on the card,
@@ -123,6 +139,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1194,6 +1211,318 @@ def _probe_phase(torch):
     return out
 
 
+def _export_obj(scene, directory, name):
+    """Write a committed scene (DIFFUSE and GGX materials) as ``name.obj`` +
+    ``name.mtl`` + one PNG per texture, so that ``load_obj`` gives back its
+    arrays: z negated and faces wound (v0, v2, v1), undone by the loader's
+    handedness flip; floats as %.9g, which round-trips float32; materials
+    named so their sorted order is their id; texels stored as
+    round(255 v^(1/2.2)), which ``srgb_decode`` inverts to within 8-bit
+    steps. (tests/test_torch_io_config.py holds the same exporter.)"""
+    from terra_tpu_torch.io.image import write_png
+    from terra_tpu_torch.scene import BSDFType
+
+    def arr(x):
+        return x.detach().cpu().numpy()
+
+    g, m, tex = scene.geometry, scene.materials, scene.textures
+    pos, vidx = arr(g.positions), arr(g.tri_vidx).astype(np.int64)
+    nrm, uvs, mid = arr(g.normals), arr(g.uvs), arr(g.mat_id)
+    flip = np.asarray([1, 1, -1], np.float32)
+    t = len(vidx)
+
+    def rows(fmt, a):
+        return "\n".join(map(fmt.__mod__, map(tuple, a.tolist())))
+
+    corner = np.arange(3 * t, dtype=np.int64).reshape(t, 3) + 1
+    face = np.stack([vidx + 1, corner, corner], axis=-1)[:, (0, 2, 1)].reshape(t, 9)
+    starts = np.flatnonzero(np.diff(mid)) + 1
+    faces = []
+    for s, e in zip(np.concatenate([[0], starts]), np.concatenate([starts, [t]])):
+        faces.append(f"usemtl m{int(mid[s]):03d}")
+        faces.append(rows("f %d/%d/%d %d/%d/%d %d/%d/%d", face[s:e]))
+    with open(os.path.join(directory, f"{name}.obj"), "w") as f:
+        f.write("\n".join([f"mtllib {name}.mtl", rows("v %.9g %.9g %.9g", pos * flip),
+                           rows("vn %.9g %.9g %.9g", nrm.reshape(-1, 3) * flip),
+                           rows("vt %.9g %.9g", uvs.reshape(-1, 2)), *faces]) + "\n")
+
+    bsdf, attrs, attr_tex, emis = (arr(x) for x in (m.bsdf_type, m.attrs, m.attr_tex, m.emissive))
+    lines = []
+    for i in range(len(bsdf)):
+        lines += [f"newmtl m{i:03d}", "Kd %.9g %.9g %.9g" % tuple(attrs[i, 0].tolist()),
+                  "Ke %.9g %.9g %.9g" % tuple(emis[i].tolist())]
+        if bsdf[i] == int(BSDFType.GGX):
+            lines += ["Pr %.9g" % attrs[i, 1, 0], "Pm %.9g" % attrs[i, 2, 0]]
+        elif bsdf[i] != int(BSDFType.DIFFUSE):
+            raise ValueError(f"material {i}: only DIFFUSE and GGX are exported")
+        if attr_tex[i, 0] >= 0:
+            lines.append(f"map_Kd tex{int(attr_tex[i, 0])}.png")
+    with open(os.path.join(directory, f"{name}.mtl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    data, size = arr(tex.data), arr(tex.size)
+    for k in range(len(data)):
+        h, w = size[k]
+        u8 = np.round(255.0 * np.power(np.clip(data[k, :h, :w], 0, 1), 1 / 2.2))
+        write_png(os.path.join(directory, f"tex{k}.png"), u8.astype(np.uint8))
+    return os.path.join(directory, f"{name}.obj")
+
+
+def _timed(store: dict, key: str, fn, sync=None):
+    """``fn`` wrapped to append its seconds (after ``sync()``) to
+    ``store[key]``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync is not None:
+            sync()
+        store.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def _cli_env(home: str) -> dict:
+    """Environment of a ``python -m terra_tpu_torch`` subprocess: this
+    checkout on the path, a temporary HOME for the console history."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=root + (os.pathsep + path if path else ""), HOME=home)
+
+
+def _film_npz(path):
+    with np.load(path) as z:
+        return z["acc"], z["samples"]
+
+
+def _phase7a(torch, ttt, scene, tmp):
+    """Export the courtyard to OBJ + MTL + PNG and import it on the card,
+    stage by stage; the arrays must come back bit-equal (texels within
+    8-bit sRGB steps). Returns the OBJ path."""
+    from terra_tpu_torch import native
+    from terra_tpu_torch.io import obj as obj_mod
+
+    t0 = time.perf_counter()
+    path = _export_obj(scene, tmp, "courtyard")
+    export_s = time.perf_counter() - t0
+    stages = {}
+    with mock.patch.object(obj_mod, "_scan_directives",
+                           _timed(stages, "directive scan", obj_mod._scan_directives)), \
+            mock.patch.object(native, "obj_parse",
+                              _timed(stages, "native parse", native.obj_parse)), \
+            mock.patch.object(obj_mod, "_build_atlas",
+                              _timed(stages, "atlas (2 PNGs)", obj_mod._build_atlas)):
+        t0 = time.perf_counter()
+        geom, mats, atlas = obj_mod.load_obj(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imported = ttt.commit(geom, mats, textures=atlas, accelerator=ttt.Accelerator.BVH)
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    sizes = {e: os.path.getsize(path[:-3] + e) for e in ("obj", "mtl")}
+    print(f"phase 7a: exported the courtyard ({scene.geometry.num_triangles} tris) as "
+          f"{sizes['obj'] / 1e6:.1f} MB OBJ + MTL + 2 PNGs in {export_s:.2f} s; load_obj on cuda "
+          f"{load_s:.2f} s (" + ", ".join(f"{k} {v[0]:.2f} s" for k, v in stages.items())
+          + f", the rest (flip, normals, tables, copies) "
+          f"{load_s - sum(v[0] for v in stages.values()):.2f} s); commit with the SAH build "
+          f"{commit_s:.2f} s", flush=True)
+    bad = [f for f in ("positions", "tri_vidx", "normals", "uvs", "mat_id")
+           if not _same_bits(getattr(imported.geometry, f), getattr(scene.geometry, f))]
+    bad += [f for f in ("bsdf_type", "attrs", "attr_tex", "emissive", "emissive_tex", "ior")
+            if not _same_bits(getattr(imported.materials, f), getattr(scene.materials, f))]
+    bad += [f for f in ("size", "filter", "address")
+            if not _same_bits(getattr(imported.textures, f), getattr(scene.textures, f))]
+    same_tree = all(torch.equal(getattr(imported.bvh, f), getattr(scene.bvh, f))
+                    for f in ("node_min", "node_max", "node_left", "node_right", "leaf_tri",
+                              "wide_child"))
+    enc = torch.pow(scene.textures.data.clamp(0, 1), 1 / 2.2) * 255.0
+    back = torch.pow(imported.textures.data, 1 / 2.2) * 255.0
+    tex_err = float((back - enc).abs().max()) if back.shape == enc.shape else float("inf")
+    print(f"  round trip: arrays differing in bits {bad or 'none'}; same SAH tree {same_tree}; "
+          f"texels max |diff| {tex_err:.4f} of 0.5 (in 8-bit sRGB steps)", flush=True)
+    if bad or not same_tree or not tex_err <= 0.5 + 1e-3:
+        raise AssertionError("phase 7a: the imported courtyard differs from the courtyard")
+    return path
+
+
+def _phase7(torch, ttt, pt, scene, render_3b_s):
+    """Phase 7: the command line at full width. Returns the launches of the
+    in-process CLI runs {"binary", "bvh4"}."""
+    from terra_tpu_torch import _build, cli, profile
+    from terra_tpu_torch.io import image as image_mod
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="terra_tpu_torch_cli_")
+    env = _cli_env(tmp)
+    path = _phase7a(torch, ttt, scene, tmp)
+
+    # 7b. the real entry point, in a subprocess: 3b's settings, 2 passes
+    args = [path, "--width", "384", "--height", "384", "--spp", "8", "--bounces", "2",
+            "--integrator", "direct", "--opt", "render_jitter=0.5",
+            "--opt", "camera_position=20,4,3", "--opt", "camera_direction=0,0.08,1",
+            "--opt", "camera_fov=60"]
+    ck, out = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "out.png")
+
+    def run(argv):
+        before = set(os.listdir(_build.BUILD_DIR))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "terra_tpu_torch", *argv], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        built = sorted(set(os.listdir(_build.BUILD_DIR)) - before)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 7: `{' '.join(argv[:2])} ...` exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return proc, sec, built
+
+    proc, sec, built = run(["render", *args, "--passes", "2", "--checkpoint", ck, "--stats",
+                            "-o", out])
+    acc16, spp16 = _film_npz(ck)
+    shutil.copy(ck, os.path.join(tmp, "ck16.npz"))
+    png = image_mod.read_png(out)
+    passes = [ln for ln in proc.stderr.splitlines() if "pass " in ln and " done (" in ln]
+    stats = [ln for ln in proc.stdout.splitlines() if ln.startswith(("render ", "stage/"))]
+    print(f"phase 7b: python3 -m terra_tpu_torch render courtyard.obj (3b's settings, --passes 2 "
+          f"--checkpoint --stats -o out.png): rc 0 in {sec:.2f} s; log: {passes}; PNG "
+          f"{png.shape}; checkpoint {int(spp16.min())}..{int(spp16.max())} spp, finite "
+          f"{bool(np.isfinite(acc16).all())}; kernels rebuilt by the subprocess: "
+          f"{built or 'none'}", flush=True)
+    for ln in stats:
+        print(f"  {ln}", flush=True)
+    if (len(passes) != 2 or "pass 2/2 done (16 spp total)" not in passes[-1]
+            or png.shape != (384, 384, 3) or not (spp16 == 16).all()
+            or not np.isfinite(acc16).all() or not any(s.startswith("stage/raycast") for s in stats)
+            or not any(s.startswith("render ") for s in stats)):
+        raise AssertionError("phase 7b: the render command failed a gate")
+    proc, sec, built_r = run(["render", *args, "--passes", "1", "--checkpoint", ck, "--resume",
+                              "-o", out])
+    acc24, spp24 = _film_npz(ck)
+    print(f"phase 7b: --resume --passes 1: rc 0 in {sec:.2f} s, film {int(spp24.min())}.."
+          f"{int(spp24.max())} spp, finite {bool(np.isfinite(acc24).all())}; kernels rebuilt "
+          f"{built_r or 'none'}", flush=True)
+    if not (spp24 == 24).all() or not np.isfinite(acc24).all():
+        raise AssertionError("phase 7b: the resumed render did not reach 24 spp")
+
+    # 7c. the same command in process, timed by wrapping the CLI's callees
+    times = {}
+    per_pass, clock_sums = [], []
+
+    def sync():
+        torch.cuda.synchronize()
+
+    real_render = cli.render
+
+    def render_pass(*a, **k):
+        # the profiler's render clock so far: its sum before each pass
+        clock_sums.append(profile.profiler.stats("render").sum)
+        l2, l4 = pt.launches, pt.launches4
+        t0 = time.perf_counter()
+        film = real_render(*a, **k)
+        torch.cuda.synchronize()
+        per_pass.append({"s": time.perf_counter() - t0, "binary": pt.launches - l2,
+                         "bvh4": pt.launches4 - l4,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return film
+
+    ck_in = os.path.join(tmp, "ck_inproc.npz")
+    profile.profiler.clear()
+    torch.cuda.reset_peak_memory_stats()
+    patches = [mock.patch.object(cli, "render", render_pass),
+               mock.patch.object(cli, "_build_scene",
+                                 _timed(times, "build", cli._build_scene, sync)),
+               mock.patch.object(cli, "save_render_state",
+                                 _timed(times, "checkpoint", cli.save_render_state)),
+               mock.patch.object(cli, "develop", _timed(times, "develop", cli.develop, sync)),
+               mock.patch.object(image_mod, "save_image",
+                                 _timed(times, "png", image_mod.save_image)),
+               mock.patch.object(profile, "stage_breakdown",
+                                 _timed(times, "stats", profile.stage_breakdown, sync))]
+    cwd = os.getcwd()
+    pt.launches = pt.launches4 = 0
+    try:
+        for p in patches:
+            p.start()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        rc = cli.main(["render", *args, "--passes", "2", "--checkpoint", ck_in, "--stats",
+                       "-o", os.path.join(tmp, "out_inproc.png")])
+        total = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        for p in patches:
+            p.stop()
+    launches = collections.Counter(binary=pt.launches, bvh4=pt.launches4)
+    acc_in, spp_in = _film_npz(ck_in)
+    same = acc_in.tobytes() == acc16.tobytes() and np.array_equal(spp_in, spp16)
+    nominal = profile.ray_count(ttt.RenderOptions(width=384, height=384, samples_per_pixel=8,
+                                                  bounces=2, integrator=ttt.Integrator.DIRECT))
+    own = total - sum(sum(v) for v in times.values()) - sum(p["s"] for p in per_pass)
+    print(f"phase 7c: cli.main in process, the same arguments: rc {rc}, {total:.2f} s; film "
+          f"bit-equal to 7b's two-pass film {same}; launches binary {launches['binary']} bvh4 "
+          f"{launches['bvh4']} (with --stats' stage breakdown); scene load + commit "
+          f"{sum(times['build']):.2f} s", flush=True)
+    clock = np.diff(clock_sums + [profile.profiler.stats("render").sum])
+    for i, p in enumerate(per_pass):
+        print(f"  pass {i + 1}: render {clock[i]:.3f} s (the profiler's render clock; "
+              f"{p['s']:.3f} s inside it), nominal {nominal / clock[i] / 1e6:.2f} "
+              f"Mrays/s ({nominal:.0f} rays), launches binary {p['binary']} bvh4 {p['bvh4']}, "
+              f"checkpoint write {times['checkpoint'][i]:.3f} s, peak memory "
+              f"{p['peak_gib']:.2f} GiB", flush=True)
+    print(f"  develop {sum(times['develop']):.4f} s, PNG write {sum(times['png']):.3f} s, --stats "
+          f"{sum(times['stats']):.2f} s, the rest of the CLI's own time {own:.3f} s; phase 3's "
+          f"3b render in this call: {render_3b_s:.3f} s", flush=True)
+    if rc != 0 or not same or launches["binary"] + launches["bvh4"] <= 0 or \
+            any(p["binary"] + p["bvh4"] <= 0 for p in per_pass):
+        raise AssertionError("phase 7c: the in-process CLI failed a gate")
+
+    # 7d. CPU against CUDA through the CLI on a small courtyard, and the console
+    small_dir = os.path.join(tmp, "small")
+    os.makedirs(small_dir)
+    small = _export_obj(ttt.scenes.courtyard(grid=40, columns=8, device="cpu"), small_dir, "small")
+    with open(os.path.join(small_dir, "small.config"), "w") as f:  # the per-scene autoload
+        f.write("camera_position = 20 4 3\ncamera_direction = 0 0.08 1\ncamera_fov = 60\n")
+    imgs = {}
+    for device in ("cpu", "cuda"):
+        ck_d = os.path.join(tmp, f"ck_{device}.npz")
+        l2, l4 = pt.launches, pt.launches4
+        t0 = time.perf_counter()
+        cwd = os.getcwd()
+        try:
+            os.chdir(tmp)
+            rc = cli.main(["render", small, "--width", "32", "--height", "32", "--spp", "4",
+                           "--bounces", "2", "--integrator", "direct", "--opt",
+                           "render_jitter=0.5", "--checkpoint", ck_d, "--device", device])
+        finally:
+            os.chdir(cwd)
+        if device == "cuda":
+            launches.update(binary=pt.launches - l2, bvh4=pt.launches4 - l4)
+        acc, spp = _film_npz(ck_d)
+        imgs[device] = acc / np.maximum(spp, 1)[..., None]
+        print(f"phase 7d: CLI on the small courtyard (grid 40, 8 columns) 32x32x4spp DIRECT "
+              f"--device {device}: rc {rc}, {time.perf_counter() - t0:.2f} s, mean "
+              f"{imgs[device].mean():.5f}, launches binary {pt.launches - l2} bvh4 "
+              f"{pt.launches4 - l4}", flush=True)
+        if rc != 0 or not np.isfinite(imgs[device]).all() or not imgs[device].mean() > 0.0:
+            raise AssertionError(f"phase 7d: the CLI on {device} failed")
+    _twin_match(imgs["cuda"], imgs["cpu"], *GOLDEN)
+    shot = os.path.join(tmp, "console.png")
+    script = f"opt set width 64\nstep\nsave {shot}\nmesh list\nexit\n"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "terra_tpu_torch", "console", small], cwd=tmp,
+                          env=env, input=script, capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    objects = len(re.findall(r"object +\d+: \d+ tris", proc.stdout))
+    shape = image_mod.read_png(shot).shape if os.path.exists(shot) else None
+    print(f"phase 7d: console on cuda with a scripted stdin (opt set width 64, step, save, mesh "
+          f"list, exit): rc {proc.returncode} in {sec:.2f} s, PNG {shape}, {objects} objects "
+          f"listed", flush=True)
+    if proc.returncode != 0 or shape != (256, 64, 3) or objects <= 0:
+        raise AssertionError(f"phase 7d: the console script failed:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    shutil.rmtree(tmp)
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 TWIN_TABLES = {
     "binary": lambda pt: pt.pack_tables,
     "f32": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="f32"),
@@ -1351,7 +1680,7 @@ def main() -> None:
     # 3. the production courtyard render (config 3b)
     main_launches = collections.Counter()
     print("phase 3: config 3b", flush=True)
-    _, l2, l4 = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
+    render_3b_s, l2, l4 = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
     main_launches.update(binary=l2, bvh4=l4)
 
     # 3m. the 1M-triangle path (config 3m): dir3-sorted rays, as the bench
@@ -1450,6 +1779,10 @@ def main() -> None:
     launches6c, inverse["6c"] = _phase6c(torch, ttt, pt, scene, cam, dev)
     main_launches.update(launches6c)
     inverse["6d_max_rel"] = _phase6d(torch, ttt)
+
+    # 7. the command line at full width: the courtyard exported to OBJ and
+    # rendered through `python -m terra_tpu_torch render` and `cli.main`
+    main_launches.update(_phase7(torch, ttt, pt, scene, render_3b_s))
 
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)

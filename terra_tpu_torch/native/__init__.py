@@ -1,10 +1,11 @@
-"""Host-side BVH builds through native C++ (ctypes).
+"""Host-side BVH builds and the OBJ number parse through native C++ (ctypes).
 
 ``terra_native.cpp`` beside this file is a copy of the JAX package's
 builder source with the same code (its comments differ in one path), so
 both packages build the same trees from the same positions (the SAH and
 LBVH twins in ``tests/test_torch_scene.py`` and ``tests/test_torch_lbvh.py``
-hold the arrays equal). It is compiled with g++ at first use into this
+hold the arrays equal; the OBJ twins in ``tests/test_torch_io_config.py``
+hold the parsed records equal). It is compiled with g++ at first use into this
 package's ``_build`` directory, with the flags the JAX package uses. A
 missing compiler or a failed build raises; there is no NumPy fallback.
 """
@@ -18,13 +19,14 @@ import numpy as np
 
 from .._build import build_shared
 
-__all__ = ["load", "sah_build", "lbvh_build"]
+__all__ = ["load", "sah_build", "lbvh_build", "obj_parse"]
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "terra_native.cpp")
 CXX_CMD = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
 
 _P32 = ctypes.POINTER(ctypes.c_int32)
 _PF = ctypes.POINTER(ctypes.c_float)
+_P64 = ctypes.POINTER(ctypes.c_int64)
 _BUILD_ARGS = [_PF, ctypes.c_int64, _P32, ctypes.c_int64, ctypes.c_int,
                _P32, _P32, _P32, _PF, _PF, _P32, _P32, _P32]
 
@@ -37,6 +39,10 @@ def load() -> ctypes.CDLL:
     lib.terra_sah_build.argtypes = _BUILD_ARGS + [ctypes.POINTER(ctypes.c_int64)]
     lib.terra_lbvh_build.restype = ctypes.c_int
     lib.terra_lbvh_build.argtypes = _BUILD_ARGS
+    lib.terra_obj_count.restype = ctypes.c_int
+    lib.terra_obj_count.argtypes = [ctypes.c_char_p, ctypes.c_int64, _P64, _P64, _P64, _P64]
+    lib.terra_obj_parse.restype = ctypes.c_int
+    lib.terra_obj_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64, _PF, _PF, _PF, _P32, _P32]
     return lib
 
 
@@ -107,3 +113,31 @@ def lbvh_build(positions: np.ndarray, tri_vidx: np.ndarray, leaf_size: int) -> d
     if rc != 0:
         raise RuntimeError(f"terra_lbvh_build failed (rc={rc}, tris={t}, leaf_size={leaf_size})")
     return _trim(out, c)
+
+
+def obj_parse(text) -> tuple:
+    """Numeric records of an OBJ file's text (``str`` or ``bytes``):
+    (verts (V, 3) f32, norms (N, 3) f32, uvs (U, 2) f32, face_idx (F, 3, 3)
+    i32 with (v, vt, vn) per corner and -1 where absent, face_line (F,) i32
+    source line of each triangle). Polygons are fan-triangulated; negative
+    indices are resolved against the records read so far."""
+    if isinstance(text, str):
+        text = text.encode("utf-8", errors="replace")
+    lib = load()
+    n = ctypes.c_int64(len(text))
+    nv, nn, nt, nf = (ctypes.c_int64() for _ in range(4))
+    rc = lib.terra_obj_count(text, n, ctypes.byref(nv), ctypes.byref(nn), ctypes.byref(nt),
+                             ctypes.byref(nf))
+    if rc != 0:
+        raise RuntimeError(f"terra_obj_count failed (rc={rc}, bytes={len(text)})")
+    verts = np.zeros((nv.value, 3), np.float32)
+    norms = np.zeros((nn.value, 3), np.float32)
+    uvs = np.zeros((nt.value, 2), np.float32)
+    face_idx = np.zeros((nf.value, 3, 3), np.int32)
+    face_line = np.zeros((nf.value,), np.int32)
+    rc = lib.terra_obj_parse(text, n, _ptr(verts, ctypes.c_float), _ptr(norms, ctypes.c_float),
+                             _ptr(uvs, ctypes.c_float), _ptr(face_idx, ctypes.c_int32),
+                             _ptr(face_line, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError(f"terra_obj_parse failed (rc={rc}, bytes={len(text)})")
+    return verts, norms, uvs, face_idx, face_line

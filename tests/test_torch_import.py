@@ -8,15 +8,21 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "terra_tpu_torch"
 
+# the command line and its modules, which ``import terra_tpu_torch`` leaves out
+FRONT_END = ["terra_tpu_torch.io.obj", "terra_tpu_torch.io.image", "terra_tpu_torch.config",
+             "terra_tpu_torch.cli", "terra_tpu_torch.__main__"]
+
 _CHECK = """
 import importlib, pkgutil, sys
 import terra_tpu_torch
+eager = sorted(k for k in %r if k in sys.modules)
 for m in pkgutil.walk_packages(terra_tpu_torch.__path__, "terra_tpu_torch."):
     importlib.import_module(m.name)
+missing = sorted(k for k in %r if k not in sys.modules)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "terra_tpu"))
-print("LEAKED", bad)
-sys.exit(1 if bad else 0)
-"""
+print("LEAKED", bad, "IMPORTED BY THE PACKAGE", eager, "NOT WALKED", missing)
+sys.exit(1 if bad or eager or missing else 0)
+""" % (FRONT_END, FRONT_END)
 
 
 def test_import_leaves_jax_out():
