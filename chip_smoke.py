@@ -106,7 +106,32 @@ exits non-zero (there is no CPU fallback):
      launches per pass, the render clock, nominal rays/s, the CLI's own
      time and peak memory per pass beside phase 3's 3b render; 7d the CLI
      with ``--device cpu`` and on the card on a small courtyard (golden
-     twin budgets), and ``console`` on the card with a scripted stdin.
+     twin budgets), and ``console`` on the card with a scripted stdin;
+  8. row x sample sharding on ``torch.distributed`` (``parallel/``), with
+     ranks started by ``python -m torch.distributed.run``: 8a config 3b
+     through ``render_sharded`` on 4 gloo ranks that share the card with
+     CUDA tensors, at meshes (4, 1), (2, 2) and (1, 4), and on one NCCL
+     rank at (1, 1); the gathered films against phase 3's film (bit-equal
+     at (4, 1) and (1, 1); the twin budgets and max |d| <= 1e-5 of the
+     largest value at the others), each rank's BVH4 launches, the host-clock
+     median of 3 renders per mesh (the ranks time-slice one card: no
+     scaling is measured); 8b phase 6c's gradient and 2 Adam steps with a
+     host refit at mesh (2, 2), grad_chunks 2, against ``value_and_grad``
+     and ``make_train_step`` on this process (loss and every field within
+     1e-5 of its largest entry, grad_chunks 1 against 2 too, parameters
+     and refit boxes bit-identical on every rank), ms per step and peak
+     memory per rank; 8c bench config 5 through ``-m
+     terra_tpu_torch.scripts.pod_render``: the 4096 x 4096 Cornell box by
+     brute force, 4 bounces, DIRECT_MIS, chunks of 4, row bands of 2^21
+     lanes, spp cut from 1024 to 8 (to 4 if one timed band says the phase
+     would pass ~300 s); one NCCL rank killed by SIGKILL once its first
+     checkpoint exists, then 4 gloo ranks with 2 sample ways resume it;
+     every pixel at the full count and three 64-row bands against
+     single-process ``render_rows`` on the same samples; 8d the stackless
+     packet walk (``accel.traverse.raycast``, plain PyTorch) on 2^16
+     camera rays and 2^16 rays of phase 2c's 3b closest-hit batch against
+     the BVH4 kernel (hit masks, t where the ids agree, >= 99% same ids;
+     any hit against t_max seeds), both timed.
 
 Phase 1 also builds both traversal kernels with the earlier 64-entry stack;
 phase 2b gates both kernels on a 1,700-triangle tree whose BVH4 walk needs
@@ -118,8 +143,10 @@ renders of phases 3, 3m and 3g, the sorted ``traverse_packed`` in phase
 3m, the compact bench of phase 3c, the CUDA half of each twin in phase 4
 (the binary kernel is on it only there, since ``wide_mode`` picks the
 BVH4 overlay for both courtyards), the probe entry points of phase 5 and
-the training steps and ``recover`` runs of phase 6, and the in-process
-command lines of phase 7 (7c and the CUDA half of 7d). Each is run with the launch counts set to 0 and read after; launches that
+the training steps and ``recover`` runs of phase 6, the in-process
+command lines of phase 7 (7c and the CUDA half of 7d), and the sharded
+renders and training steps of the ranks of phases 8a and 8b (each rank
+counts its own launches and reports them). Each is run with the launch counts set to 0 and read after; launches that
 compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
 object describing the kernels (with each one's least time on the card,
@@ -633,7 +660,7 @@ def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
     """One render of the main path after a small warm-up, with the launch
     counts of both kernels; then (``check_unsorted``) the same render with
     the ray sort off, which must give the same film bit for bit. Returns
-    (seconds, launches, launches4) of the sorted render."""
+    (seconds, launches, launches4, film) of the sorted render."""
     ttt.render(scene, cam, opts.replace(width=32, height=32), seed=1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -660,7 +687,7 @@ def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
     if launches + launches4 <= 0 or not finite or not mean > 0.0:
         raise AssertionError(f"{label} render failed its checks")
     if not check_unsorted:
-        return seconds, launches, launches4
+        return seconds, launches, launches4, film
     with mock.patch.object(pt, "raycast", functools.partial(pt.raycast, sort_rays=False)):
         t0 = time.perf_counter()
         unsorted = ttt.render(scene, cam, opts, seed=0)
@@ -671,7 +698,7 @@ def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
           f"films equal bit for bit {same}", flush=True)
     if not same:
         raise AssertionError(f"{label}: the sorted and unsorted renders differ")
-    return seconds, launches, launches4
+    return seconds, launches, launches4, film
 
 
 def _disney(torch, scene):
@@ -997,18 +1024,14 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     from terra_tpu_torch.accel import lbvh
     from terra_tpu_torch.ops import rng
 
-    opts = ttt.RenderOptions(width=side, height=side, samples_per_pixel=8, bounces=2,
-                             integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
-                             rr_start_bounce=8)
-    fields = ("attrs", "textures", "positions")
+    opts = _opts_6c(ttt).replace(width=side, height=side)
+    fields = FIELDS_6C
     with torch.no_grad():
         target = optim.render_mean_image(scene, cam, opts, rng.key_from_seed(7), 0, 8)
     print(f"phase 6c: target {side}x{side}x8spp: mean {float(target.mean()):.4e}, min "
           f"{float(target.min()):.4e}, max {float(target.max()):.4e}, negative values "
           f"{float((target < 0).float().mean()):.4%}", flush=True)
-    attrs = scene.materials.attrs.clone()
-    attrs[0, 0] = torch.tensor([0.3, 0.5, 0.6], device=dev)
-    start = optim.inject_params(scene, {"attrs": attrs, "textures": scene.textures.data * 0.5})
+    start = _start_6c(torch, optim, scene)
     key = rng.key_from_seed(7)
     loss_fn = optim.make_loss_fn(cam, opts, target)
     with torch.no_grad():
@@ -1523,6 +1546,483 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
     return launches
 
 
+# --- phase 8: row x sample sharding on torch.distributed -------------------
+
+SHARD_MESHES = [(4, 1), (2, 2), (1, 4)]
+FIELDS_6C = ("attrs", "textures", "positions")
+
+
+def _opts_3b(ttt):
+    return ttt.RenderOptions(width=384, height=384, samples_per_pixel=8, bounces=2,
+                             integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
+                             samples_per_lane=8)
+
+
+def _opts_6c(ttt):
+    """Phase 6c's training render: 3b's size, one sample per lane, no roulette."""
+    return ttt.RenderOptions(width=384, height=384, samples_per_pixel=8, bounces=2,
+                             integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
+                             rr_start_bounce=8)
+
+
+def _start_6c(torch, optim, scene):
+    """Phase 6c's start: the wall albedo [0.3, 0.5, 0.6], the textures halved."""
+    attrs = scene.materials.attrs.clone()
+    attrs[0, 0] = torch.tensor([0.3, 0.5, 0.6], device=attrs.device)
+    return optim.inject_params(scene, {"attrs": attrs, "textures": scene.textures.data * 0.5})
+
+
+def _refit(lbvh, scene, params):
+    """The scene with its tree refit to the step's positions, as recover() does."""
+    geom = dataclasses.replace(scene.geometry, positions=params["positions"].detach())
+    return dataclasses.replace(scene, bvh=lbvh.refit(scene.bvh, geom))
+
+
+def _train_2(torch, optim, lbvh, step, start, key):
+    """Two steps of ``step`` from phase 6c's start with a host refit after
+    each; returns ([(loss, params, node_min, node_max, ms, peak GiB)] per step)."""
+    state = optim.TrainState(optim.extract_params(start, FIELDS_6C), None, 0)
+    scene, out = start, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, loss = step(state, scene, key)
+        scene = _refit(lbvh, scene, state.params)
+        torch.cuda.synchronize()
+        out.append((float(loss), {k: v.detach().clone() for k, v in state.params.items()},
+                    scene.bvh.node_min.clone(), scene.bvh.node_max.clone(),
+                    (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2**30))
+    return out
+
+
+def _rank_job(argv) -> None:
+    """One rank of phase 8 (started by ``python -m torch.distributed.run``):
+    ``--rank-job shard`` renders config 3b through ``render_sharded`` at
+    meshes (4, 1), (2, 2) and (1, 4) (3 times each) and takes phase 6c's
+    sharded gradient and 2 Adam steps at (2, 2), grad_chunks 2; ``--rank-job
+    nccl`` renders 3b at (1, 1). Each rank writes what it measured to
+    ``--out``; rank 0 also the gathered films and gradients."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    import terra_tpu_torch as ttt
+    from terra_tpu_torch import optim
+    from terra_tpu_torch.accel import lbvh
+    from terra_tpu_torch.accel import pallas_traverse as pt
+    from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.parallel import distributed
+    from terra_tpu_torch.parallel.mesh import band_rows_of, gather_rows, make_mesh, render_sharded
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--rank-job", choices=("shard", "nccl"))
+    p.add_argument("--out")
+    p.add_argument("--backend", default=None)
+    args = p.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.initialize(backend=args.backend, device="cuda")
+    rank = dist.get_rank()
+    res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size()}
+    if args.rank_job == "nccl":  # a collective through the backend itself
+        x = torch.ones(1, device=dev)
+        dist.all_reduce(x)
+        dist.barrier()
+        res["all_reduce"] = float(x[0])
+    scene = ttt.scenes.courtyard(device=dev)
+    cam = ttt.scenes.courtyard_camera(device=dev)
+    opts = _opts_3b(ttt)
+    shapes = SHARD_MESHES if args.rank_job == "shard" else [(1, 1)]
+    meshes = {shape: make_mesh(shape, device="cuda") for shape in shapes}
+    render_sharded(scene, cam, opts.replace(width=32, height=32), meshes[shapes[0]], seed=1)
+    for (r, s), mesh in meshes.items():
+        seconds, launches = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            dist.barrier()
+            pt.launches = pt.launches4 = 0
+            t0 = time.perf_counter()
+            film = render_sharded(scene, cam, opts, mesh, seed=0)
+            torch.cuda.synchronize()
+            dist.barrier()
+            seconds.append(time.perf_counter() - t0)
+            launches.append([pt.launches, pt.launches4])
+            if i == 0:
+                rows = band_rows_of(mesh, opts.height)
+                acc = gather_rows(film.acc, rows, opts.height, mesh)
+                samples = gather_rows(film.samples, rows, opts.height, mesh)
+        res[f"{r}x{s}"] = {"seconds": seconds, "launches": launches, "row": mesh.row,
+                           "sample": mesh.sample}
+        if rank == 0:
+            np.save(os.path.join(args.out, f"film_{r}x{s}.npy"), acc.cpu().numpy())
+            np.save(os.path.join(args.out, f"samples_{r}x{s}.npy"), samples.cpu().numpy())
+    if args.rank_job == "shard":
+        mesh = meshes[(2, 2)]
+        o6 = _opts_6c(ttt)
+        target = torch.load(os.path.join(args.out, "target_6c.pt"), map_location=dev)
+        start = _start_6c(torch, optim, scene)
+        key = rng.key_from_seed(7)
+        params = optim._trainable(optim.extract_params(start, FIELDS_6C))
+        pt.launches = pt.launches4 = 0
+        for chunks in (1, 2):
+            loss, grads = optim.make_grad_fn_sharded(cam, o6, target, mesh,
+                                                     grad_chunks=chunks)(params, start, key, 0)
+            if rank == 0:
+                torch.save({"loss": float(loss), **{k: g.cpu() for k, g in grads.items()}},
+                           os.path.join(args.out, f"grads_{chunks}.pt"))
+        step = optim.make_train_step_sharded(cam, o6, target,
+                                             functools.partial(torch.optim.Adam, lr=3e-2), mesh,
+                                             grad_chunks=2)
+        steps = _train_2(torch, optim, lbvh, step, start, key)
+        res["train"] = {"losses": [x[0] for x in steps], "ms": [x[4] for x in steps],
+                        "peak_gib": [x[5] for x in steps]}
+        res["train_launches"] = [pt.launches, pt.launches4]
+        torch.save([{**{k: v.cpu() for k, v in x[1].items()}, "node_min": x[2].cpu(),
+                     "node_max": x[3].cpu()} for x in steps],
+                   os.path.join(args.out, f"params_rank{rank}.pt"))
+    with open(os.path.join(args.out, f"{args.rank_job}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _torchrun(nproc: int, argv, log: str) -> subprocess.Popen:
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks from the repository root, output to ``log``; returns the running
+    launcher (stop it with :func:`_kill_tree`)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with open(log, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nnodes", "1",
+             "--nproc-per-node", str(nproc), *argv], cwd=root, env=env, stdout=f,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _kill_tree(pid: int) -> None:
+    """SIGKILL a process and every process under it, ranks first: the
+    launcher starts each rank in a session of its own, so killing the
+    launcher's process group would leave the ranks running."""
+    children = collections.defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    children[int(f.read().rsplit(")", 1)[1].split()[1])].append(int(entry))
+            except (OSError, IndexError, ValueError):
+                continue
+    tree, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        todo.extend(children.get(p, []))
+    for p in reversed(tree):
+        try:
+            os.kill(p, 9)
+        except ProcessLookupError:
+            pass
+
+
+def _wait(proc, log: str, what: str, timeout: float) -> str:
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_tree(proc.pid)
+        proc.wait()
+        rc = "timeout"
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"phase 8: {what} exited {rc}:\n{text[-4000:]}")
+    return text
+
+
+def _max_rel(a, b) -> float:
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
+    """Phases 8a and 8b: the sharded 3b render on 4 gloo ranks sharing the
+    card and on one NCCL rank, against phase 3's film; phase 6c's sharded
+    gradient and Adam steps at mesh (2, 2) against the unsharded ones on
+    this process. Returns (launches of the ranks' main path, results)."""
+    from terra_tpu_torch import optim
+    from terra_tpu_torch.accel import lbvh
+    from terra_tpu_torch.ops import rng
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "phase8")
+    os.makedirs(out, exist_ok=True)
+    # the unsharded references of 8b, on this process
+    o6 = _opts_6c(ttt)
+    key = rng.key_from_seed(7)
+    with torch.no_grad():
+        target = optim.render_mean_image(scene, cam, o6, key, 0, 8)
+    torch.save(target, os.path.join(out, "target_6c.pt"))
+    start = _start_6c(torch, optim, scene)
+    params = optim._trainable(optim.extract_params(start, FIELDS_6C))
+    loss0, g_ref = optim.value_and_grad(optim.make_loss_fn(cam, o6, target), params, start, key, 0)
+    g_ref = dict(zip(sorted(params), g_ref))
+    ref_steps = _train_2(torch, optim, lbvh, optim.make_train_step(
+        cam, o6, target, functools.partial(torch.optim.Adam, lr=3e-2)), start, key)
+    del params
+    torch.cuda.empty_cache()
+
+    shard_log, nccl_log = os.path.join(out, "shard.log"), os.path.join(out, "nccl.log")
+    t0 = time.perf_counter()
+    _wait(_torchrun(4, [os.path.abspath(__file__), "--rank-job", "shard", "--out", out,
+                        "--backend", "gloo"], shard_log), shard_log, "the 4 gloo ranks", 900)
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _wait(_torchrun(1, [os.path.abspath(__file__), "--rank-job", "nccl", "--out", out],
+                    nccl_log), nccl_log, "the NCCL rank", 600)
+    nccl_s = time.perf_counter() - t0
+    ranks = []
+    for i in range(4):
+        with open(os.path.join(out, f"shard_rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(out, "nccl_rank0.json")) as f:
+        nccl = json.load(f)
+    print(f"phase 8a: 4 ranks on one card ({ranks[0]['backend']}, {ranks[0]['device']}, CUDA "
+          f"tensors) in {shard_s:.1f} s of launcher, 1 {nccl['backend']} rank in {nccl_s:.1f} s "
+          f"(all_reduce of 1.0 over 1 rank: {nccl['all_reduce']}); the 4 ranks time-slice the "
+          f"one card, so these times measure no scaling", flush=True)
+
+    ref = film_3b.acc.cpu().numpy()
+    launches = collections.Counter()
+    results = {}
+    ok = True
+    for label, rows in [(f"{r}x{s}", ranks) for r, s in SHARD_MESHES] + [("1x1", [nccl])]:
+        acc = np.load(os.path.join(out, f"film_{label}.npy"))
+        n = np.load(os.path.join(out, f"samples_{label}.npy"))
+        med = float(np.median(rows[0][label]["seconds"]))
+        per_rank = [sum(x[1] for x in rk[label]["launches"]) for rk in rows]
+        for rk in rows:
+            launches.update(binary=sum(x[0] for x in rk[label]["launches"]),
+                            bvh4=sum(x[1] for x in rk[label]["launches"]))
+        bit = bool(np.array_equal(acc, ref))
+        dmax = float(np.abs(acc - ref).max())
+        bound = 1e-5 * float(np.abs(ref).max())
+        print(f"phase 8a: mesh ({label.replace('x', ', ')}) "
+              f"{'nccl' if label == '1x1' else 'gloo'}: render_sharded 384x384x8spp, host-clock "
+              f"median of 3 {med:.3f} s (runs {[round(x, 3) for x in rows[0][label]['seconds']]}; "
+              f"phase 3's single-process render {render_3b_s:.3f} s); BVH4 launches per "
+              f"rank over the 3 renders {per_rank}; film samples {int(n.min())}..{int(n.max())}; "
+              f"bit-equal to phase 3's film {bit}; max |d| {dmax:.3e} (bound {bound:.3e})",
+              flush=True)
+        if label in ("4x1", "1x1"):
+            ok &= bit
+        else:
+            _twin_match(acc, ref)
+            ok &= dmax <= bound
+        ok &= bool((n == 8).all()) and min(per_rank) > 0
+        results[label] = {"median_s": med, "seconds": rows[0][label]["seconds"],
+                          "bvh4_launches_per_rank": per_rank, "bit_equal": bit, "max_abs": dmax}
+
+    # 8b: gradients, the two steps, parameters across ranks
+    g1, g2 = (torch.load(os.path.join(out, f"grads_{c}.pt")) for c in (1, 2))
+    rel = {k: _max_rel(g2[k].numpy(), g_ref[k].cpu().numpy()) for k in g_ref}
+    rel12 = {k: _max_rel(g2[k].numpy(), g1[k].numpy()) for k in g_ref}
+    loss_rel = abs(g2["loss"] - float(loss0)) / abs(float(loss0))
+    params = [torch.load(os.path.join(out, f"params_rank{i}.pt")) for i in range(4)]
+    same = all(torch.equal(params[0][s][k], pr[s][k]) for pr in params[1:] for s in range(2)
+               for k in params[0][s])
+    losses = ranks[0]["train"]["losses"]
+    ref_losses = [x[0] for x in ref_steps]
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    # the unsharded loss at the sharded run's own parameters (and refit
+    # tree) of each step, with make_train_step's samples: Adam's first
+    # steps move an entry by about +-lr whatever its size, so a gradient
+    # entry near 0 whose sign the sums' order flips sends the two
+    # trajectories apart after step 0; this holds each step's loss itself
+    loss_fn = optim.make_loss_fn(cam, o6, target)
+    own = [float(loss0)]
+    p_sh = {k: v.to(scene.device) for k, v in params[0][0].items()}
+    at = optim.inject_params(start, {k: p_sh[k] for k in FIELDS_6C})
+    at = dataclasses.replace(at, bvh=dataclasses.replace(at.bvh, node_min=p_sh["node_min"],
+                                                         node_max=p_sh["node_max"]))
+    with torch.no_grad():
+        own.append(float(loss_fn({k: p_sh[k] for k in FIELDS_6C}, at, key, 8)))
+    own_rel = [abs(a - b) / abs(b) for a, b in zip(losses, own)]
+    flips = {k: int(((p_sh[k] - ref_steps[0][1][k]).abs() > 3e-2).sum()) for k in FIELDS_6C}
+    for rk in ranks:
+        launches.update(binary=rk["train_launches"][0], bvh4=rk["train_launches"][1])
+    print(f"phase 8b: phase 6c's gradient at mesh (2, 2) (384x384x8spp, fields {FIELDS_6C}): loss "
+          f"{g2['loss']:.6e} vs unsharded {float(loss0):.6e} (rel {loss_rel:.2e}); grad_chunks 2 "
+          f"vs unsharded, max |d| / largest entry per field "
+          f"{ {k: f'{v:.2e}' for k, v in rel.items()} }; grad_chunks 2 vs 1 "
+          f"{ {k: f'{v:.2e}' for k, v in rel12.items()} }", flush=True)
+    for i in range(2):
+        print(f"  Adam step {i} (grad_chunks 2, host refit): loss {losses[i]:.6e}, the unsharded "
+              f"loss at the same parameters {own[i]:.6e} (rel {own_rel[i]:.2e}), make_train_step's "
+              f"{ref_losses[i]:.6e} (rel {step_rel[i]:.2e}); ms/step per rank "
+              f"{[round(rk['train']['ms'][i], 1) for rk in ranks]} (unsharded on this process "
+              f"{ref_steps[i][4]:.1f}); peak memory per rank GiB "
+              f"{[round(rk['train']['peak_gib'][i], 2) for rk in ranks]} (unsharded "
+              f"{ref_steps[i][5]:.2f})", flush=True)
+    print(f"  entries that step 0 moved apart from make_train_step's by more than lr (an Adam "
+          f"sign flip of a gradient near 0) {flips} of "
+          f"{ {k: int(v.numel()) for k, v in ref_steps[0][1].items()} }", flush=True)
+    print(f"  parameters and refit boxes bit-identical across the 4 ranks after each step {same}; "
+          f"BVH4 launches per rank (gradients + steps) "
+          f"{[rk['train_launches'][1] for rk in ranks]}; phase 8a-b {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    ok &= loss_rel <= 1e-5 and max(rel.values()) <= 1e-5 and max(rel12.values()) <= 1e-5
+    ok &= same and step_rel[0] <= 1e-5 and max(own_rel) <= 1e-5
+    if not ok:
+        raise AssertionError("phase 8a/8b failed a gate")
+    results["8b"] = {"grad_rel": rel, "chunks_rel": rel12, "loss_rel": loss_rel,
+                     "step_losses": losses, "ref_losses": ref_losses, "own_losses": own,
+                     "flips": flips,
+                     "ms": [rk["train"]["ms"] for rk in ranks],
+                     "peak_gib": [rk["train"]["peak_gib"] for rk in ranks]}
+    return launches, results
+
+
+def _phase8c(torch, ttt, tmp):
+    """Phase 8c: bench config 5 through ``python -m torch.distributed.run
+    ... -m terra_tpu_torch.scripts.pod_render``: the 4096 x 4096 Cornell box
+    by brute force, 4 bounces, DIRECT_MIS, chunks of 4 (cut: spp 1024 -> 8,
+    or 4 if one timed band says the phase would pass ~300 s), row bands of
+    at most 2^21 lanes. Run 1: one NCCL rank, a checkpoint every chunk,
+    SIGKILL once the first checkpoint exists. Run 2: 4 gloo ranks sharing
+    the card, 2 sample ways, resuming that file. Gate: every pixel at the
+    full sample count, and three 64-row bands of the film against
+    single-process ``render_rows`` on the same samples."""
+    from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.render import MAX_WAVEFRONT_LANES, render_rows
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "phase8c")
+    os.makedirs(out, exist_ok=True)
+    dev = torch.device("cuda")
+    scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BRUTE, device=dev)
+    cam = ttt.scenes.cornell_camera(device=dev)
+    side, spp, chunk = 4096, 8, 4
+
+    def options(spp):
+        return ttt.RenderOptions(width=side, height=side, samples_per_pixel=spp, bounces=4,
+                                 integrator=ttt.Integrator.DIRECT_MIS, subpixel_jitter=0.5)
+
+    key = rng.key_from_seed(0)
+    band = MAX_WAVEFRONT_LANES // (side * chunk)
+    render_rows(scene, cam, options(spp), key, 0, chunk, 0, 8)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_rows(scene, cam, options(spp), key, 0, chunk, 0, band)
+    torch.cuda.synchronize()
+    t_band = time.perf_counter() - t0
+    estimate = t_band * (side // band) * (spp // chunk)
+    cut = estimate > 200.0
+    if cut:
+        spp, chunk = 4, 2
+        band = MAX_WAVEFRONT_LANES // (side * chunk)
+    print(f"phase 8c: one {band}-row band of 4096x4096 at {chunk} spp, 4 bounces, DIRECT_MIS, "
+          f"brute force: {t_band:.2f} s; the frame at 8 spp estimated {estimate:.0f} s, so spp "
+          f"{spp} (cut from 1024{', and further from 8' if cut else ''}), chunk {chunk}, row band "
+          f"{band} ({band * side * chunk} lanes a launch)", flush=True)
+    ckpt, logs = os.path.join(out, "pod.npz"), [os.path.join(out, f"run{i}.log") for i in (1, 2)]
+    argv = ["-m", "terra_tpu_torch.scripts.pod_render", "--width", str(side), "--height",
+            str(side), "--spp", str(spp), "--chunk", str(chunk), "--bounces", "4",
+            "--integrator", "direct-mis", "--row-band", str(band), "--checkpoint", ckpt,
+            "--checkpoint-every", "1"]
+    t0 = time.perf_counter()
+    run1 = _torchrun(1, [*argv, "-o", os.path.join(out, "run1.png")], logs[0])
+    while not os.path.exists(ckpt) and run1.poll() is None and time.perf_counter() - t0 < 600:
+        time.sleep(0.05)
+    _kill_tree(run1.pid)  # if it had ended already, the gate below refuses the run
+    rc1 = run1.wait()
+    run1_s = time.perf_counter() - t0
+    with open(logs[0]) as f:
+        log1 = f.read()
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"phase 8c: run 1 wrote no checkpoint (rc {rc1}):\n{log1[-3000:]}")
+    with np.load(ckpt) as z:
+        n1 = z["samples"]
+    killed_at = int(n1.max())
+    print(f"phase 8c: run 1 (1 nccl rank) killed by SIGKILL {run1_s:.1f} s after its start, once "
+          f"its first checkpoint existed: rc {rc1}, checkpoint at {killed_at} spp (uniform "
+          f"{bool((n1 == killed_at).all())}), image written "
+          f"{os.path.exists(os.path.join(out, 'run1.png'))}; its lines: "
+          f"{[ln for ln in log1.splitlines() if ln.startswith(('mesh:', 'spp'))]}", flush=True)
+    t0 = time.perf_counter()
+    log2 = _wait(_torchrun(4, [*argv, "--backend", "gloo", "--sample-ways", "2", "-o",
+                               os.path.join(out, "run2.png")], logs[1]), logs[1],
+                 "run 2 of pod_render", 900)
+    run2_s = time.perf_counter() - t0
+    with np.load(ckpt) as z:
+        acc, n = z["acc"], z["samples"]
+    png = os.path.join(out, "run2.png")
+    print(f"phase 8c: run 2 (4 gloo ranks, 2 sample ways) {run2_s:.1f} s: "
+          f"{[ln for ln in log2.splitlines() if ln.startswith(('mesh:', 'resumed', 'spp', 'wrote'))]}; "
+          f"film samples {int(n.min())}..{int(n.max())}, PNG {os.path.getsize(png) if os.path.exists(png) else 0} B",
+          flush=True)
+    ok = rc1 != 0 and 0 < killed_at < spp and bool((n1 == killed_at).all())
+    ok &= bool((n == spp).all()) and os.path.exists(png) and f"resumed at {killed_at} spp" in log2
+    opts = options(spp)
+    bands = {}
+    thirds = (("top", side // 8), ("middle", side // 2 - 32), ("bottom", side * 7 // 8 - 64))
+    for label, r0 in thirds:
+        ref = sum(render_rows(scene, cam, opts, key, c, chunk, r0, 64)
+                  for c in range(0, spp, chunk)).cpu().numpy()
+        got = acc[r0:r0 + 64]
+        dmax, bound = float(np.abs(got - ref).max()), 1e-5 * float(np.abs(ref).max())
+        print(f"  band {label} (rows {r0}..{r0 + 63}) against render_rows on the same samples: "
+              f"max |d| {dmax:.3e} (bound {bound:.3e})", flush=True)
+        _twin_match(got, ref)
+        ok &= dmax <= bound and bound > 0.0
+        bands[label] = dmax
+    print(f"phase 8c: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError("phase 8c failed a gate")
+    return {"spp": spp, "chunk": chunk, "band": band, "t_band_s": t_band, "run1_s": run1_s,
+            "run2_s": run2_s, "killed_at": killed_at, "bands_max_abs": bands}
+
+
+def _phase8d(torch, pt, scene, cam, bounce):
+    """Phase 8d: the stackless packet walk (``accel.traverse.raycast``,
+    plain PyTorch with one host read per loop trip) on 2^16 camera rays and
+    2^16 rays of the mid-render 3b closest-hit batch of phase 2c, against
+    the BVH4 kernel on f32 tables: hit masks equal, t equal wherever the
+    triangle ids agree, >= 99% of ids equal; then occlusion (any hit)
+    against t_max seeds: hit masks equal. Times both."""
+    from terra_tpu_torch.accel import traverse
+    from terra_tpu_torch.intersect import T_FAR
+
+    dev = torch.device("cuda")
+    tables = pt.pack_tables_wide(scene.bvh, *scene.geometry.corners(), box_enc="f32")
+    batches = {"camera": _camera_rays(torch, cam, 256, dev), "3b bounce": bounce}
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    rows, ok = {}, True
+    for label, (o, d) in batches.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = traverse.raycast(scene, o, d)
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        kt, ki = pt.raycast4_cuda(tables, o, d)
+        kernel_ms = _ms(torch, lambda: pt.raycast4_cuda(tables, o, d), 20)
+        hk = kt < T_FAR
+        bad = int((h.hit != hk).sum())
+        same = h.tri[hk] == ki[hk]
+        frac = float(same.float().mean()) if bool(hk.any()) else 1.0
+        t_ok = bool(torch.equal(h.t[hk][same], kt[hk][same]))
+        tm = (torch.rand(o.shape[0], generator=gen) * 60.0).to(dev)
+        ha = traverse.raycast(scene, o, d, t_max=tm, any_hit=True)
+        at, _ = pt.raycast4_cuda(tables, o, d, tm, True)
+        bad_any = int((ha.hit != (at < tm)).sum())
+        print(f"phase 8d: packet walk on {o.shape[0]} {label} rays: {walk_s:.3f} s (host clock) vs "
+              f"the BVH4 kernel {kernel_ms:.4f} ms; hits {int(hk.sum())}, hit-mask mismatches {bad}, "
+              f"same triangle {frac:.6f}, t equal where the ids agree {t_ok}; any hit against "
+              f"t_max: {int(ha.hit.sum())} occluded, mismatches {bad_any}", flush=True)
+        ok &= bad == 0 and frac >= 0.99 and t_ok and bad_any == 0 and bool(hk.any())
+        rows[label] = {"walk_s": walk_s, "kernel_ms": kernel_ms, "same_tri": frac}
+    if not ok:
+        raise AssertionError("phase 8d: the packet walk disagrees with the BVH4 kernel")
+    return rows
+
+
 TWIN_TABLES = {
     "binary": lambda pt: pt.pack_tables,
     "f32": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="f32"),
@@ -1653,9 +2153,7 @@ def main() -> None:
     # 2c. the traversal kernels on the batches the renders send them:
     # config 3b (below) and config 3g (the full-material render at bench
     # config 2's width, bench.py:202-219, spp cut from 256 to 16)
-    opts = ttt.RenderOptions(width=384, height=384, samples_per_pixel=8, bounces=2,
-                             integrator=ttt.Integrator.DIRECT, subpixel_jitter=0.5,
-                             samples_per_lane=8)
+    opts = _opts_3b(ttt)
     g_scene = ttt.scenes.cornell_box(accelerator=ttt.Accelerator.BVH,
                                      wall_bsdf=ttt.BSDFType.PHONG,
                                      block_bsdf=ttt.BSDFType.GLASS, device=dev)
@@ -1675,12 +2173,18 @@ def main() -> None:
                                  {"3b closest-hit": bin_3b, "3b shadow": bin_3b}, footprint)
     cap_ab = _cap_ab(torch, pt, batches, {"3b closest-hit": bin_3b, "3b shadow": bin_3b},
                      footprint64)
+    # 2^16 live rays of the 3b closest-hit batch, for phase 8d
+    _, o_b, d_b = cap["closest"][:3]
+    live_b = torch.nonzero(o_b[:, 1] < intersect.MISS_ORIGIN / 2).squeeze(1)
+    pick = live_b[torch.linspace(0, live_b.numel() - 1, min(1 << 16, live_b.numel()),
+                                 device=dev).long()]
+    bounce_8d = (o_b[pick].contiguous(), d_b[pick].contiguous())
     del cap, batches
 
     # 3. the production courtyard render (config 3b)
     main_launches = collections.Counter()
     print("phase 3: config 3b", flush=True)
-    render_3b_s, l2, l4 = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
+    render_3b_s, l2, l4, film_3b = _render(torch, ttt, pt, scene, cam, opts, "courtyard")
     main_launches.update(binary=l2, bvh4=l4)
 
     # 3m. the 1M-triangle path (config 3m): dir3-sorted rays, as the bench
@@ -1716,7 +2220,7 @@ def main() -> None:
         raise AssertionError("traverse_packed on the 1M scene found no finite hits")
     if not same:
         raise AssertionError("sorting the rays changed traverse_packed's results")
-    _, l2, l4 = _render(torch, ttt, pt, mega, cam, opts, "courtyard_1m")
+    _, l2, l4, _ = _render(torch, ttt, pt, mega, cam, opts, "courtyard_1m")
     main_launches.update(binary=l2, bvh4=l4)
     if pt.wide_mode(mega.bvh) is not None and l4 <= 0:
         raise AssertionError("the 1M render did not launch the BVH4 kernel")
@@ -1727,12 +2231,13 @@ def main() -> None:
     # 3g. the full-material render at bench config 2's width (bench.py:202-219,
     # spp cut from 256 to 16), then the courtyard under a constant sky
     print("phase 3g: config 3g (Cornell box, Phong walls, glass block)", flush=True)
-    _, l2, l4 = _render(torch, ttt, pt, g_scene, g_cam, g_opts, "cornell_3g",
+    _, l2, l4, _ = _render(torch, ttt, pt, g_scene, g_cam, g_opts, "cornell_3g",
                         check_unsorted=False)
     main_launches.update(binary=l2, bvh4=l4)
     sky = dataclasses.replace(scene, env_value=torch.tensor([0.5, 0.6, 0.8], device=dev))
     s_opts = opts.replace(integrator=ttt.Integrator.DIRECT_MIS, env_on_miss=True, env_nee=True)
-    _, l2, l4 = _render(torch, ttt, pt, sky, cam, s_opts, "courtyard_sky", check_unsorted=False)
+    _, l2, l4, _ = _render(torch, ttt, pt, sky, cam, s_opts, "courtyard_sky",
+                           check_unsorted=False)
     main_launches.update(binary=l2, bvh4=l4)
 
     # 3c. the compacted two-phase traversal (compact_bench's workload)
@@ -1783,6 +2288,17 @@ def main() -> None:
     # 7. the command line at full width: the courtyard exported to OBJ and
     # rendered through `python -m terra_tpu_torch render` and `cli.main`
     main_launches.update(_phase7(torch, ttt, pt, scene, render_3b_s))
+
+    # 8. row x sample sharding on torch.distributed (8a-8c), and the
+    # stackless packet walk (8d)
+    tmp8 = tempfile.mkdtemp(prefix="terra_tpu_torch_phase8_")
+    try:
+        launches8, shard = _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp8)
+        main_launches.update(launches8)
+        shard["8c"] = _phase8c(torch, ttt, tmp8)
+        shard["8d"] = _phase8d(torch, pt, scene, cam, bounce_8d)
+    finally:
+        shutil.rmtree(tmp8, ignore_errors=True)
 
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
@@ -1836,4 +2352,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--rank-job" in sys.argv:
+        _rank_job(sys.argv[1:])
+    else:
+        main()

@@ -17,6 +17,11 @@ is a callable that takes the list of parameter tensors and returns a
 ``torch.optim.Optimizer``, such as ``functools.partial(torch.optim.Adam,
 lr=3e-2)``. It updates the parameter tensors in place.
 
+The sharded steps (:func:`make_grad_fn_sharded`,
+:func:`make_train_step_sharded`, ``recover(mesh=...)``) split pixel rows
+and samples over the ranks of a ``parallel.mesh.Mesh`` on
+``torch.distributed`` and all-reduce the gradient of every chunk.
+
 Known limitation, as in the reference: vertex-position gradients flow
 through the interior terms only (the differentiable hit re-evaluation and
 the shading that depends on it); a silhouette or shadow edge moving across
@@ -31,8 +36,9 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from .checkpoint import tree_leaves, tree_map
+from .checkpoint import tree_leaves, tree_map, tree_unflatten
 from .ops import rng as rng_mod
+from .parallel.mesh import Mesh, shard_sizes
 from .render import render_rows
 from .scene import Camera, RenderOptions, Scene
 
@@ -168,15 +174,21 @@ def make_train_step(cam: Camera, opts: RenderOptions, target, optimizer,
     is None starts ``optimizer`` on trainable copies of its params; the
     optimiser then updates those tensors in place."""
     loss_fn = make_loss_fn(cam, opts, target, spp)
-    spp_eff = spp or opts.samples_per_pixel
+    return _optimizer_step(lambda params, *args: value_and_grad(loss_fn, params, *args),
+                           optimizer, spp or opts.samples_per_pixel)
 
+
+def _optimizer_step(grads_fn, optimizer, spp: int):
+    """step(state, scene, key) -> (state, loss): ``grads_fn(params, scene,
+    key, sample_offset)`` gives (loss, gradients in leaf order), the
+    optimiser steps on them; the offset advances by ``spp`` a step."""
     def step(state: TrainState, scene: Scene, key):
         params, opt = state.params, state.opt_state
         if opt is None:
             params = _trainable(params)
             opt = optimizer(tree_leaves(params))
-        loss, grads = value_and_grad(loss_fn, params, scene, key, state.step * spp_eff)
-        for p, g in zip(tree_leaves(params), grads):
+        loss, grads = grads_fn(params, scene, key, state.step * spp)
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
             p.grad = g
         opt.step()
         return TrainState(params, opt, state.step + 1), loss
@@ -184,18 +196,73 @@ def make_train_step(cam: Camera, opts: RenderOptions, target, optimizer,
     return step
 
 
-def make_train_step_sharded(*args, **kwargs):
-    """The sharded step waits for the port's ``torch.distributed`` layer
-    (ROADMAP queue A11)."""
-    raise NotImplementedError("make_train_step_sharded needs torch.distributed "
-                              "(ROADMAP queue A11); use make_train_step")
+def make_grad_fn_sharded(cam: Camera, opts: RenderOptions, target, mesh,
+                         spp: Optional[int] = None, grad_chunks: int = 1):
+    """grads_fn(params, scene, key, sample_offset) -> (loss, gradient tree):
+    the loss of :func:`make_loss_fn` and its gradient, with rows and
+    samples sharded over ``mesh`` (a ``parallel.mesh.Mesh``). Every rank
+    returns the same loss and the same gradient bits.
+
+    Each rank renders its row band and sample slice in ``grad_chunks``
+    chunks, each forward recorded by autograd. The chunk sums are added and
+    all-reduced over the sample group *detached*, which gives the band's
+    image; the loss is all-reduced over the row group. The cotangent of the
+    band's accumulator, ``2 (img - tgt) / (denom * spp)``, is shared by
+    every sample shard (the transpose of a sum is a broadcast), so each
+    chunk's backward ``torch.autograd.grad(acc_i, params, cot)`` gives that
+    chunk's part of the whole-step gradient, which is all-reduced over every
+    rank right after that backward. No collective sits inside the autograd
+    graph: the reference's earlier form, a ``psum`` inside the loss,
+    transposed to another ``psum`` and scaled the gradients by the number
+    of sample shards (``terra_tpu/optim.py:178-186``)."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (distributed.initialize, then "
+                        f"make_mesh), not {type(mesh).__name__}")
+    spp_eff = spp or opts.samples_per_pixel
+    rows_per, spp_per = shard_sizes(mesh, opts.height, spp_eff)
+    if spp_per % grad_chunks:
+        raise ValueError(f"{spp_per} samples per shard do not split into {grad_chunks} chunks")
+    sub = spp_per // grad_chunks
+    denom = float(opts.width * opts.height * 3)
+    row0 = mesh.row * rows_per
+    tgt = torch.as_tensor(target)[row0:row0 + rows_per].to(mesh.device)
+
+    def grads_fn(params, scene: Scene, key, sample_offset):
+        leaves = tree_leaves(params)
+        base = int(sample_offset) + mesh.sample * spp_per
+        with deterministic():
+            accs = [render_rows(inject_params(scene, params), inject_camera(cam, params), opts,
+                                key, base + i * sub, sub, row0, rows_per)
+                    for i in range(grad_chunks)]
+            acc = accs[0].detach().clone()
+            for a in accs[1:]:
+                acc = acc + a.detach()
+            img = mesh.all_reduce(acc, "samples") / float(spp_eff)
+            loss = mesh.all_reduce((torch.sum((img - tgt) ** 2) / denom).reshape(1), "rows")[0]
+            cot = 2.0 * (img - tgt) / (denom * float(spp_eff))
+            grads = None
+            for a in accs:
+                g = torch.autograd.grad(a, leaves, cot, allow_unused=True)
+                g = [torch.zeros_like(p) if x is None else x for p, x in zip(leaves, g)]
+                flat = mesh.all_reduce(torch.cat([x.reshape(-1) for x in g]))  # per-chunk reduce
+                g = list(torch.split(flat, [x.numel() for x in g]))
+                g = [x.reshape(p.shape) for p, x in zip(leaves, g)]
+                grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+        return loss.detach(), tree_unflatten(params, grads)
+
+    return grads_fn
 
 
-def make_grad_fn_sharded(*args, **kwargs):
-    """The sharded gradient waits for ROADMAP queue A11, as
-    :func:`make_train_step_sharded` does."""
-    raise NotImplementedError("make_grad_fn_sharded needs torch.distributed "
-                              "(ROADMAP queue A11)")
+def make_train_step_sharded(cam: Camera, opts: RenderOptions, target, optimizer, mesh,
+                            spp: Optional[int] = None, grad_chunks: int = 1):
+    """The sharded :func:`make_train_step`: the gradient of
+    :func:`make_grad_fn_sharded` (``grad_chunks`` chunks, each all-reduced
+    right after its backward), then every rank steps its own optimiser on
+    the same gradient bits, so the parameters stay bit-identical across
+    ranks."""
+    return _optimizer_step(make_grad_fn_sharded(cam, opts, target, mesh, spp=spp,
+                                                grad_chunks=grad_chunks),
+                           optimizer, spp or opts.samples_per_pixel)
 
 
 def recover(scene_init: Scene, cam: Camera, opts: RenderOptions, target,
@@ -209,10 +276,9 @@ def recover(scene_init: Scene, cam: Camera, opts: RenderOptions, target,
     values to [0, attr_cap], where attr_cap keeps slots that started above
     1 (exponents) free up to 1e4, emission and texture data to >= 0. With
     "positions" on a BVH scene the tree is refit on the host after every
-    step. ``mesh`` (the sharded loop) waits for ROADMAP queue A11."""
-    if mesh is not None:
-        raise NotImplementedError("recover(mesh=...) needs torch.distributed "
-                                  "(ROADMAP queue A11)")
+    step. With ``mesh`` (a ``parallel.mesh.Mesh``) every rank runs the
+    loop on the sharded step of :func:`make_train_step_sharded`, with the
+    same clipping and refit, so every rank ends with the same scene."""
     optimizer = functools.partial(torch.optim.Adam, lr=learning_rate)
     params = _trainable(extract_params(scene_init, fields, cam=cam))
     attr_cap = None
@@ -221,7 +287,10 @@ def recover(scene_init: Scene, cam: Camera, opts: RenderOptions, target,
         attr_cap = torch.where(attrs > 1.0, 1e4, 1.0).to(attrs.dtype)
     state = TrainState(params, optimizer(tree_leaves(params)), 0)
     key = rng_mod.key_from_seed(seed)
-    step_fn = make_train_step(cam, opts, target, optimizer)
+    if mesh is None:
+        step_fn = make_train_step(cam, opts, target, optimizer)
+    else:
+        step_fn = make_train_step_sharded(cam, opts, target, optimizer, mesh)
     refit_bvh = "positions" in fields and scene_init.bvh is not None
     losses = []
     for i in range(steps):

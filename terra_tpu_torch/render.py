@@ -341,12 +341,17 @@ def render_rows(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offs
     return lo.reshape(rows, opts.width, spp_chunk, 3).sum(dim=2)
 
 
+def _rows_per_launch(opts: RenderOptions, spp_chunk: int) -> int:
+    """The most rows whose lanes fit in MAX_WAVEFRONT_LANES (at least one)."""
+    lanes_per_row = opts.width * spp_chunk // _quota(opts, spp_chunk)
+    return max(MAX_WAVEFRONT_LANES // max(lanes_per_row, 1), 1)
+
+
 def _band_rows(opts: RenderOptions, spp_chunk: int) -> int:
     """Row-band height keeping a launch under MAX_WAVEFRONT_LANES: the
     whole frame when it fits, else the largest divisor of the height that
     does."""
-    lanes_per_row = opts.width * spp_chunk // _quota(opts, spp_chunk)
-    target = max(MAX_WAVEFRONT_LANES // max(lanes_per_row, 1), 1)
+    target = _rows_per_launch(opts, spp_chunk)
     if target >= opts.height:
         return opts.height
     for b in range(target, 0, -1):

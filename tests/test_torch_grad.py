@@ -510,7 +510,14 @@ def test_persistent_lanes_refuse_gradients():
 
 @pytest.mark.parametrize("fn", ["make_train_step_sharded", "make_grad_fn_sharded", "recover"])
 def test_sharded_steps_wait_for_distributed(fn):
-    """The sharded steps are not ported yet (ROADMAP queue A11) and say so."""
+    """The sharded steps run on a parallel.mesh.Mesh, which waits for a
+    joined process group: make_mesh refuses to build one before
+    distributed.initialize, and each sharded step refuses anything else
+    (tests/test_torch_sharding.py runs them on 8 gloo ranks)."""
+    from terra_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="initialize"):
+        make_mesh(device="cpu")
     scene, cam, opts = _config4(ttt, device=CPU)
     target = torch.zeros((12, 12, 3))
     call = {"recover": lambda: optim.recover(scene, cam, opts, target, mesh=object()),
@@ -518,7 +525,7 @@ def test_sharded_steps_wait_for_distributed(fn):
                                                                              None, object()),
             "make_grad_fn_sharded": lambda: optim.make_grad_fn_sharded(cam, opts, target,
                                                                        object())}[fn]
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="Mesh"):
         call()
 
 

@@ -11,6 +11,11 @@ PKG = ROOT / "terra_tpu_torch"
 # the command line and its modules, which ``import terra_tpu_torch`` leaves out
 FRONT_END = ["terra_tpu_torch.io.obj", "terra_tpu_torch.io.image", "terra_tpu_torch.config",
              "terra_tpu_torch.cli", "terra_tpu_torch.__main__"]
+# the torch.distributed layer and the scripts that drive it, also left out
+# of ``import terra_tpu_torch`` and reached by the walk
+FRONT_END += ["terra_tpu_torch.parallel.mesh", "terra_tpu_torch.parallel.distributed",
+              "terra_tpu_torch.scripts.pod_render", "terra_tpu_torch.scripts.inverse_render",
+              "terra_tpu_torch.scripts.scaling_bench"]
 
 _CHECK = """
 import importlib, pkgutil, sys
