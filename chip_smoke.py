@@ -43,9 +43,10 @@ exits non-zero (there is no CPU fallback):
      memory and blocks per SM (``pallas_traverse.occupancy``);
   3. the production courtyard render (config 3b: 384x384, 8 spp, 2
      bounces, DIRECT, persistent lanes of 8; every raycast sorted by the
-     reference's parent-hit keys), with the table kind ``pack_tables_auto``
-     chose and the launches of each kernel; then the same render with the
-     sort switched off, which must give the same image bit for bit;
+     reference's parent-hit keys), after a warm-up render that captures its
+     CUDA graphs, with the table kind ``pack_tables_auto`` chose and the
+     launches of each kernel; then the same render with the sort switched
+     off (captured anew), which must give the same image bit for bit;
   3m. the 1M-triangle path: ``traverse_packed`` on bf16 tables over 2^20
      camera rays sorted by dir3 keys, as the bench sorts them (sort time,
      sorted and unsorted traversal times, the sorted results scattered
@@ -131,7 +132,21 @@ exits non-zero (there is no CPU fallback):
      packet walk (``accel.traverse.raycast``, plain PyTorch) on 2^16
      camera rays and 2^16 rays of phase 2c's 3b closest-hit batch against
      the BVH4 kernel (hit masks, t where the ids agree, >= 99% same ids;
-     any hit against t_max seeds), both timed.
+     any hit against t_max seeds), both timed;
+  9. the launch units as CUDA graphs (``graphs.py``; every ``render`` on
+     the card above already replays them): for cells 3b, 3m, 3g and the
+     sky, 9a the graphed render against the eager one (``render_rows`` in
+     the same order) word for word, a second seed at a later sample offset
+     on the same graph, loop trips and BVH4 launches per render; on 3b
+     ``render_band`` replayed at rows 0, H/2 and H - rows against
+     ``render_rows``, a second courtyard and the same one changed in place
+     (each its own image), and a host read planted in the loop body (the
+     render must raise; nothing falls back); 9b eager and graphed renders
+     in turns (E G G E E G), medians of 3, warm-up and capture seconds,
+     replays, trips, peak memory and the graph pool's bytes, where a
+     graphed render's time goes (CUDA events around each replay against the
+     host clock; the profiler's kernel time by name), and 7c's CLI passes
+     through the graphs.
 
 Phase 1 also builds both traversal kernels with the earlier 64-entry stack;
 phase 2b gates both kernels on a 1,700-triangle tree whose BVH4 walk needs
@@ -146,7 +161,9 @@ BVH4 overlay for both courtyards), the probe entry points of phase 5 and
 the training steps and ``recover`` runs of phase 6, the in-process
 command lines of phase 7 (7c and the CUDA half of 7d), and the sharded
 renders and training steps of the ranks of phases 8a and 8b (each rank
-counts its own launches and reports them). Each is run with the launch counts set to 0 and read after; launches that
+counts its own launches and reports them), and the graphed renders of
+phase 9. A replayed graph adds the launches its capture recorded
+(``graphs.Unit``). Each is run with the launch counts set to 0 and read after; launches that
 compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
 object describing the kernels (with each one's least time on the card,
@@ -595,10 +612,25 @@ def _capture(torch, ttt, pt, scene, cam, opts, kinds):
                                None if t_max is None else t_max.clone(), any_hit, algo))
         return real(tables, o, d, t_max, any_hit, algo, count_steps, start)
 
-    with mock.patch.object(pt, "traverse_packed", spy):
+    # eagerly: a spy inside a captured graph would clone nothing real
+    with mock.patch.object(pt, "traverse_packed", spy), _eager():
         ttt.render(scene, cam, opts, seed=0)
     torch.cuda.synchronize()
     return {k: v[len(v) // 2] for k, v in seen.items()}
+
+
+def _eager():
+    """Context in which ``render`` runs its launch units eagerly through
+    ``render_rows`` (the eager body, by name) in the same order: the A/B
+    baseline of the graphs."""
+    import importlib
+
+    render_mod = importlib.import_module("terra_tpu_torch.render")
+
+    def unit_sum(scene, cam, opts, key, sample_offset, row0, spp_chunk, rows):
+        return render_mod.render_rows(scene, cam, opts, key, sample_offset, spp_chunk, row0, rows)
+
+    return mock.patch.object(render_mod, "_unit_sum", unit_sum)
 
 
 def _main_path_phase(torch, pt, batches, binary, footprint):
@@ -657,11 +689,14 @@ def _main_path_phase(torch, pt, batches, binary, footprint):
 
 
 def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
-    """One render of the main path after a small warm-up, with the launch
-    counts of both kernels; then (``check_unsorted``) the same render with
-    the ray sort off, which must give the same film bit for bit. Returns
+    """One render of the main path after a warm-up render of the same shape
+    (which captures its launch units), with the launch counts of both
+    kernels; then (``check_unsorted``) the same render with the ray sort off
+    (captured anew), which must give the same film bit for bit. Returns
     (seconds, launches, launches4, film) of the sorted render."""
-    ttt.render(scene, cam, opts.replace(width=32, height=32), seed=1)  # warm-up
+    from terra_tpu_torch import graphs
+
+    ttt.render(scene, cam, opts, seed=1)  # warm-up and capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pt.launches = pt.launches4 = 0
@@ -682,17 +717,24 @@ def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
           f"{pt.wide_mode(scene.bvh) or 'binary'}, {seconds:.3f} s, nominal "
           f"{nominal / seconds / 1e6:.2f} Mrays/s ({nominal} rays = pixels*spp*(bounces+1)*2), "
           f"launches binary {launches} bvh4 {launches4}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean {mean:.5f}, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB beside the graph pool's "
+          f"{graphs.units()[-1]['pool_bytes'] / 2**30:.2f} GiB, image mean {mean:.5f}, "
           f"finite {finite}, written to {out}", flush=True)
     if launches + launches4 <= 0 or not finite or not mean > 0.0:
         raise AssertionError(f"{label} render failed its checks")
     if not check_unsorted:
         return seconds, launches, launches4, film
+    # the captured graphs hold the sorting raycast: capture again without
+    # it, and again with it after
+    graphs.clear()
     with mock.patch.object(pt, "raycast", functools.partial(pt.raycast, sort_rays=False)):
+        ttt.render(scene, cam, opts, seed=1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         unsorted = ttt.render(scene, cam, opts, seed=0)
         torch.cuda.synchronize()
         unsorted_s = time.perf_counter() - t0
+    graphs.clear()
     same = torch.equal(film.acc, unsorted.acc) and torch.equal(film.samples, unsorted.samples)
     print(f"  {label} render with the ray sort off: {unsorted_s:.3f} s (sorted: {seconds:.3f} s); "
           f"films equal bit for bit {same}", flush=True)
@@ -1369,7 +1411,8 @@ def _phase7a(torch, ttt, scene, tmp):
 
 def _phase7(torch, ttt, pt, scene, render_3b_s):
     """Phase 7: the command line at full width. Returns the launches of the
-    in-process CLI runs {"binary", "bvh4"}."""
+    in-process CLI runs {"binary", "bvh4"}, and 7c's render clock per pass
+    (the first pass captures the render's graphs)."""
     from terra_tpu_torch import _build, cli, profile
     from terra_tpu_torch.io import image as image_mod
 
@@ -1543,7 +1586,7 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
                              f"{proc.stderr[-3000:]}")
     shutil.rmtree(tmp)
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, [float(c) for c in clock]
 
 
 # --- phase 8: row x sample sharding on torch.distributed -------------------
@@ -1636,8 +1679,8 @@ def _rank_job(argv) -> None:
     opts = _opts_3b(ttt)
     shapes = SHARD_MESHES if args.rank_job == "shard" else [(1, 1)]
     meshes = {shape: make_mesh(shape, device="cuda") for shape in shapes}
-    render_sharded(scene, cam, opts.replace(width=32, height=32), meshes[shapes[0]], seed=1)
     for (r, s), mesh in meshes.items():
+        render_sharded(scene, cam, opts, mesh, seed=1)  # warm-up: captures the band graph
         seconds, launches = [], []
         for i in range(3):
             torch.cuda.synchronize()
@@ -2023,6 +2066,242 @@ def _phase8d(torch, pt, scene, cam, bounce):
     return rows
 
 
+# --- phase 9: the launch units as CUDA graphs --------------------------------
+
+def _render_once(torch, ttt, pt, render_mod, scene, cam, opts, seed, film=None, eager=False):
+    """One ``render`` (eager through ``render_rows`` or through the graphs),
+    timed on the host clock ending in a synchronisation. Returns (film,
+    seconds, loop trips, (binary, bvh4) launches, peak allocated bytes)."""
+    import contextlib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render_mod.trips = 0
+    pt.launches = pt.launches4 = 0
+    t0 = time.perf_counter()
+    with _eager() if eager else contextlib.nullcontext():
+        film = ttt.render(scene, cam, opts, seed=seed, film=film)
+    torch.cuda.synchronize()
+    return (film, time.perf_counter() - t0, render_mod.trips, (pt.launches, pt.launches4),
+            torch.cuda.max_memory_allocated())
+
+
+def _short(kernel: str) -> str:
+    """A kernel's name without namespaces."""
+    return re.sub(r"\(anonymous namespace\)::|\b\w+::|^void ", "", kernel)
+
+
+def _graph_time(torch, ttt, graphs, scene, cam, opts, kernels: bool) -> dict:
+    """Where one graphed render's time goes (its units already captured):
+    CUDA events around every graph replay, summed by stage, beside the host
+    clock (the rest is outside the graphs: the flag reads between blocks,
+    the film adds, the host's own work); then (``kernels``) the same render
+    under ``torch.profiler`` (CUDA activity), its kernels' device time
+    summed by name."""
+    events = []
+    real = graphs.Unit._replay
+
+    def timed(self, stage):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        real(self, stage)
+        b.record()
+        events.append((stage, a, b))
+
+    torch.cuda.synchronize()
+    with mock.patch.object(graphs.Unit, "_replay", timed):
+        t0 = time.perf_counter()
+        ttt.render(scene, cam, opts, seed=0)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    stage_ms, replays = collections.defaultdict(float), collections.Counter()
+    for stage, a, b in events:
+        stage_ms[stage] += a.elapsed_time(b)
+        replays[stage] += 1
+    out = dict(host_ms=host_ms, stage_ms=dict(stage_ms), replays=dict(replays))
+    if not kernels:
+        return out
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ttt.render(scene, cam, opts, seed=0)
+        torch.cuda.synchronize()
+    rows = sorted(((_short(e.key), e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    return dict(out, kernel_ms=sum(r[1] for r in rows), kernel_count=sum(r[2] for r in rows),
+                top=rows[:10])
+
+
+def _words(torch, a, b) -> int:
+    """Differing 32-bit words of two films (accumulator and sample counts)."""
+    return int((a.acc.view(torch.int32) != b.acc.view(torch.int32)).sum()) + \
+        int((a.samples != b.samples).sum())
+
+
+def _phase9(torch, ttt, pt, cells, cli_passes):
+    """Phase 9: the launch units as CUDA graphs (``graphs.py``). 9a, per
+    cell: the graphed ``render`` against the eager one (``render_rows`` in
+    the same order; 0 differing words), a second seed at a later sample
+    offset replayed on the same graph, trips and BVH4 launches per render;
+    on 3b ``render_band`` replayed at three first rows against
+    ``render_rows``, a second courtyard (attributes halved) and the same one
+    changed in place, each its own image, and a host read planted in the
+    loop body, which must make the render raise. 9b, per cell: eager and
+    graphed renders in turns (E G G E E G), host clock ending in a
+    synchronisation, medians of 3; warm-up and capture seconds, replays,
+    trips, peak memory of each and the graph pool's bytes; where a graphed
+    render's time goes (``_graph_time``); 7c's CLI passes through the
+    graphs. Returns the main path's launches and the numbers by cell."""
+    import importlib
+
+    from terra_tpu_torch import graphs
+    from terra_tpu_torch.ops import rng
+
+    render_mod = importlib.import_module("terra_tpu_torch.render")
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    failed = []
+    results = {}
+
+    def run(scene, cam, opts, seed, film=None, eager=False):
+        out = _render_once(torch, ttt, pt, render_mod, scene, cam, opts, seed, film, eager)
+        if not eager:
+            launches.update(binary=out[3][0], bvh4=out[3][1])
+        return out
+
+    for label, scene, cam, opts in cells:
+        graphs.clear()
+        # 9a. films, trips and launches, eager against graphed
+        fe, _, _, _, _ = run(scene, cam, opts, 0, eager=True)
+        fg, first_s, _, _, _ = run(scene, cam, opts, 0)  # warm-up, capture, replay
+        # trips and launches of a render that only replays
+        fe7, _, trips_e, l_e, _ = run(scene, cam, opts, 7, film=fe, eager=True)
+        fg7, _, trips_g, l_g, _ = run(scene, cam, opts, 7, film=fg)
+        unit = graphs.units()[-1]
+        w0, w7 = _words(torch, fe, fg), _words(torch, fe7, fg7)
+        per_trip = unit["launches"].get("step", (0, 0))[1] / max(unit["trips_per_step"], 1)
+        l_ok = l_g[1] - l_e[1] == (trips_g - trips_e) * per_trip and l_g[0] == l_e[0]
+        n_units = len(graphs.units())
+        print(f"phase 9a: {label}: graphed film vs eager (render_rows order) {w0} words differ; "
+              f"seed 7 resumed at sample offset {opts.samples_per_pixel} on the same graph "
+              f"{w7} words; units captured {n_units}; per render of seed 7: trips eager "
+              f"{trips_e} graph {trips_g} "
+              f"(blocks of {unit['trips_per_step']}, bound "
+              f"{unit['trips_per_step'] * unit['max_steps']}); launches per render eager "
+              f"{l_e} graph {l_g} (bvh4 per trip {per_trip:g}); graph stages launch "
+              f"{unit['launches']}", flush=True)
+        if w0 or w7 or not l_ok or n_units != 1 or trips_g < trips_e:
+            failed.append(f"{label}: films, trips or launches")
+        # 9b. time in turns, E G G E E G
+        secs = {"eager": [], "graph": []}
+        peak = {}
+        for kind in ("eager", "graph", "graph", "eager", "eager", "graph"):
+            _, sec, _, _, pk = run(scene, cam, opts, 0, eager=kind == "eager")
+            secs[kind].append(sec)
+            peak[kind] = max(peak.get(kind, 0), pk)
+        unit = graphs.units()[-1]
+        med = {k: float(np.median(v)) for k, v in secs.items()}
+        print(f"phase 9b: {label} {opts.width}x{opts.height}x{opts.samples_per_pixel}spp: render "
+              f"eager {med['eager']:.4f} s, graph {med['graph']:.4f} s (medians of 3; turns "
+              f"eager {[round(x, 4) for x in secs['eager']]}, graph "
+              f"{[round(x, 4) for x in secs['graph']]}), eager / graph "
+              f"{med['eager'] / med['graph']:.2f}; first graphed render {first_s:.3f} s (warm-up "
+              f"{unit['warmup_s']:.3f} s, capture {unit['capture_s']:.3f} s); replays "
+              f"{unit['replays']}; trips eager {trips_e} graph {trips_g}; peak memory eager "
+              f"{peak['eager'] / 2**30:.3f} GiB, graph {peak['graph'] / 2**30:.3f} GiB beside its "
+              f"pool of {unit['pool_bytes'] / 2**30:.3f} GiB", flush=True)
+        # the profiler's kernel breakdown on 3b only: its post-processing
+        # of the larger cells' traces would cost tens of seconds
+        bd = _graph_time(torch, ttt, graphs, scene, cam, opts, kernels=label == "3b")
+        inside = sum(bd["stage_ms"].values())
+        print(f"phase 9b: {label} where a graphed render's time goes: host clock "
+              f"{bd['host_ms']:.2f} ms; inside the graphs {inside:.2f} ms (CUDA events per "
+              f"replay: " + ", ".join(f"{k} {v:.2f} ms over {bd['replays'][k]}"
+                                      for k, v in bd["stage_ms"].items())
+              + f"), outside them {bd['host_ms'] - inside:.2f} ms", flush=True)
+        if "top" in bd:
+            print(f"  the profiler: {bd['kernel_count']} kernels, {bd['kernel_ms']:.2f} ms of "
+                  f"kernel time (busy share of the host clock {bd['kernel_ms'] / bd['host_ms']:.3f}"
+                  f"; {(inside - bd['kernel_ms']) / bd['kernel_count'] * 1e3:.3f} us a kernel "
+                  f"between kernels inside the graphs); by name:", flush=True)
+            for name, ms, count in bd["top"]:
+                print(f"    {ms:8.3f} ms  x{count:<6d} {name[:120]}", flush=True)
+        results[label] = dict(eager_s=med["eager"], graph_s=med["graph"], turns=secs,
+                              first_s=first_s, warmup_s=unit["warmup_s"],
+                              capture_s=unit["capture_s"], replays=unit["replays"],
+                              trips_eager=trips_e, trips_graph=trips_g, peak_eager=peak["eager"],
+                              peak_graph=peak["graph"], pool_bytes=unit["pool_bytes"],
+                              launches_eager=l_e, launches_graph=l_g)
+        if label != "3b":
+            continue
+        # render_band at three first rows on one graph, a tensor key
+        dev = scene.device
+        rows = opts.height // 6
+        key = rng.key_from_seed(3)
+        key_t = torch.tensor(key, dtype=torch.int64, device=dev)
+        for row0 in (0, opts.height // 2, opts.height - rows):
+            pt.launches = pt.launches4 = 0
+            band = render_mod.render_band(scene, cam, opts, key_t,
+                                          torch.tensor(8, device=dev),
+                                          torch.tensor(row0, device=dev),
+                                          opts.samples_per_pixel, rows)
+            launches.update(binary=pt.launches, bvh4=pt.launches4)
+            ref = render_mod.render_rows(scene, cam, opts, key, 8, opts.samples_per_pixel, row0,
+                                         rows)
+            w = int((band.view(torch.int32) != ref.view(torch.int32)).sum())
+            band_unit = graphs.units()[-1]
+            print(f"phase 9a: 3b render_band rows [{row0}, {row0 + rows}) at offset 8, key of "
+                  f"seed 3 (tensors): {w} words differ from render_rows; band graph replays "
+                  f"{band_unit['replays']}", flush=True)
+            if w:
+                failed.append(f"3b band at {row0}")
+        if band_unit["replays"] != 3:
+            failed.append("3b bands did not share one graph")
+        # a second courtyard, then the same one changed in place
+        half = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, attrs=scene.materials.attrs * 0.5))
+        for what in ("second scene (attrs halved)", "the second scene changed in place"):
+            if what.startswith("the second"):
+                half.materials.attrs.mul_(0.5)
+            f2e, _, _, _, _ = run(half, cam, opts, 0, eager=True)
+            f2g, _, _, _, _ = run(half, cam, opts, 0)
+            w2, w_first = _words(torch, f2e, f2g), _words(torch, f2g, fg)
+            print(f"phase 9a: 3b {what}: graphed vs eager {w2} words differ; words differing "
+                  f"from the first courtyard's film {w_first}; units {len(graphs.units())}",
+                  flush=True)
+            if w2 or not w_first:
+                failed.append(f"3b {what}")
+        # a host read planted in the loop body must make the render raise
+        real_trip = render_mod._persistent_trip
+
+        def syncing_trip(*a):
+            out = real_trip(*a)
+            bool(out["finished"].any())
+            return out
+
+        graphs.clear()
+        small = opts.replace(width=32, height=32)
+        with mock.patch.object(render_mod, "_persistent_trip", syncing_trip):
+            try:
+                ttt.render(scene, cam, small, seed=0)
+                raised = "nothing"
+            except RuntimeError as e:
+                raised = str(e).splitlines()[0][:160]
+        print(f"phase 9a: 3b with a host read in the loop body: render raised: {raised}; units "
+              f"kept {len(graphs.units())}", flush=True)
+        if "synchroniz" not in raised or graphs.units():
+            failed.append("a host read in the body did not raise")
+        graphs.clear()
+    if cli_passes:
+        print(f"phase 9b: 7c's CLI passes through the graphs (3b's settings, the profiler's "
+              f"render clock): {[round(c, 4) for c in cli_passes]} s (pass 1 captures)",
+              flush=True)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s; every capture's warm-up ran under "
+          f"torch.cuda.set_sync_debug_mode('error')", flush=True)
+    if failed:
+        raise AssertionError(f"phase 9 failed: {failed}")
+    return launches, results
+
+
 TWIN_TABLES = {
     "binary": lambda pt: pt.pack_tables,
     "f32": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="f32"),
@@ -2046,7 +2325,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import terra_tpu_torch as ttt
-    from terra_tpu_torch import _build, intersect, native, probes, profile
+    from terra_tpu_torch import _build, graphs, intersect, native, probes, profile
     from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.accel import traverse
     from terra_tpu_torch.scripts import compact_bench
@@ -2258,6 +2537,7 @@ def main() -> None:
     small = {device: ttt.scenes.courtyard(**kw, device=device) for device in ("cpu", "cuda")}
     for kind, packer in TWIN_TABLES.items():
         imgs = []
+        graphs.clear()  # contexts and graphs hold the tables of the packer they saw
         with mock.patch.object(pt, "pack_tables_auto", packer(pt)):
             for device in ("cpu", "cuda"):
                 t0 = time.perf_counter()
@@ -2271,6 +2551,7 @@ def main() -> None:
                       f"({small[device].geometry.num_triangles} tris) 32x32x4spp DIRECT on "
                       f"{device}: {time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}, "
                       f"launches binary {pt.launches} bvh4 {pt.launches4}", flush=True)
+        graphs.clear()
         _twin_match(imgs[1], imgs[0])
     main_launches.update(_material_twins(torch, ttt, pt))
 
@@ -2287,7 +2568,8 @@ def main() -> None:
 
     # 7. the command line at full width: the courtyard exported to OBJ and
     # rendered through `python -m terra_tpu_torch render` and `cli.main`
-    main_launches.update(_phase7(torch, ttt, pt, scene, render_3b_s))
+    launches7, cli_passes = _phase7(torch, ttt, pt, scene, render_3b_s)
+    main_launches.update(launches7)
 
     # 8. row x sample sharding on torch.distributed (8a-8c), and the
     # stackless packet walk (8d)
@@ -2299,6 +2581,12 @@ def main() -> None:
         shard["8d"] = _phase8d(torch, pt, scene, cam, bounce_8d)
     finally:
         shutil.rmtree(tmp8, ignore_errors=True)
+
+    # 9. the launch units as CUDA graphs: graphed renders against eager ones
+    launches9, _ = _phase9(torch, ttt, pt, [("3b", scene, cam, opts), ("3m", mega, cam, opts),
+                                            ("3g", g_scene, g_cam, g_opts),
+                                            ("sky", sky, cam, s_opts)], cli_passes)
+    main_launches.update(launches9)
 
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)

@@ -6,7 +6,10 @@ names. It imports neither JAX nor ``terra_tpu``; the JAX package is the
 reference its tests compare against. The scene builders, cameras and
 ``interop``'s loaders put their tensors on ``"cuda"`` unless the caller
 passes ``device="cpu"``; CPU tensors take the plain PyTorch versions of
-the kernels, CUDA tensors the kernels themselves.
+the kernels, CUDA tensors the kernels themselves. On the card ``render``
+captures each launch unit (``render_chunk`` and its kin) as a CUDA graph
+once and replays it (``graphs.py``); ``render.render_rows`` is the eager
+body by name.
 
     import terra_tpu_torch as ttt
     scene = ttt.scenes.courtyard(device="cuda")
@@ -23,7 +26,7 @@ from .scene import (  # noqa: F401
     commit,
 )
 from .film import Film, develop, tonemap  # noqa: F401
-from .render import render, trace  # noqa: F401
+from .render import render, render_chunk, trace  # noqa: F401
 from . import scenes  # noqa: F401
 
 __version__ = "0.1.0"

@@ -2,6 +2,7 @@
 Left-handed, Y-up, the camera looks down +Z in camera space."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops import math3
@@ -31,7 +32,9 @@ def generate_rays(camera: Camera, width: int, height: int, px, py, jitter, r1, r
     ndc_y = (py.to(torch.float32) + 0.5 + dy) / float(height)
     screen_x = 2.0 * ndc_x - 1.0
     screen_y = 1.0 - 2.0 * ndc_y
-    aspect = torch.tensor(width / height, dtype=torch.float32, device=px.device)
+    # the aspect rounded to f32 on the host, a kernel argument (no copy to
+    # the device, so the function can run inside a captured CUDA graph)
+    aspect = float(np.float32(width / height))
     tan_half_fov = torch.tan(camera.fov_deg * DEG2RAD / 2.0)
     frustum_x = screen_x * aspect * tan_half_fov
     frustum_y = screen_y * tan_half_fov

@@ -1,0 +1,263 @@
+"""CUDA graphs of the render's launch units: the port's counterpart of the
+``jax.jit`` cache that serves ``terra_tpu.render``'s ``render_chunk``,
+``render_band`` and ``render_chunks``.
+
+The JAX package runs each launch unit as one compiled device program and
+traces the key, the sample offset and the first row, so one compile serves
+every seed, pass and band. Here a unit is captured once per (scene, camera,
+options, samples, rows, device) into ``torch.cuda.CUDAGraph`` objects and
+replayed with new inputs copied into a static buffer: the host dispatches
+a few graph launches instead of every elementwise op of every loop trip.
+
+A unit's body (``render._BandBody``) has three stages, each captured as
+one graph in a shared memory pool: ``start`` (lane ids, first rays, the
+loop carry), ``step`` (a block of persistent-lane loop trips, updating the
+carry in place and writing the all-finished flag) and ``finish`` (the
+radiance sum). :func:`drive` runs them: ``step`` until the flag is set or
+the trip bound is reached, reading the flag once per block.
+
+Before capture the body runs once eagerly on a side stream under
+``torch.cuda.set_sync_debug_mode("error")``, which builds the traversal
+kernels and refuses any op that synchronises with the host. A failed
+capture or replay raises, naming the stage; nothing falls back to eager
+rendering. ``render.render_rows`` stays the eager body, by name.
+
+The traversal wrappers count launches when they enqueue a kernel, so a
+replay would count nothing. A unit records each graph's captured launches,
+takes them back out of the counters (the capture launched nothing), and
+adds them again on every replay.
+
+:class:`WeakCache` keys entries on owner objects (the scene, the camera)
+held weakly, drops an entry when an owner dies, and captures anew when the
+owners' fingerprint changes: a tensor replaced or changed in place
+(``_version``), or any plain field. The render contexts (packed traversal
+tables, shading tables, env distribution) are cached the same way in
+:data:`CONTEXTS`, for the eager path too.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+import weakref
+from collections import OrderedDict
+from typing import Callable
+
+import torch
+
+from .accel import pallas_traverse
+
+__all__ = ["Unit", "WeakCache", "fingerprint", "drive", "unit", "units", "clear", "CONTEXTS",
+           "MAX_UNITS"]
+
+# Live captured units; the least recently used one goes first. A unit's
+# pool holds about one eager call's peak memory (up to ~2 GB at the
+# render's MAX_WAVEFRONT_LANES).
+MAX_UNITS = 8
+
+
+def _leaves(obj, out: list) -> list:
+    """Every leaf of ``obj`` reachable through dataclass fields, dicts,
+    lists and tuples: tensors as (id, data pointer, version, shape, dtype,
+    device); other values as themselves, or by id when unhashable."""
+    if isinstance(obj, torch.Tensor):
+        out.append(("t", id(obj), obj.data_ptr(), obj._version, tuple(obj.shape), obj.dtype,
+                    obj.device))
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _leaves(getattr(obj, f.name), out)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            out.append(k)
+            _leaves(v, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(len(obj))
+        for v in obj:
+            _leaves(v, out)
+    else:
+        try:
+            hash(obj)
+            out.append(obj)
+        except TypeError:
+            out.append(("id", id(obj)))
+    return out
+
+
+def fingerprint(*objs) -> tuple:
+    """What a captured graph baked in of ``objs``: changes when any tensor
+    in them is replaced or written in place, or any plain field changes."""
+    return tuple(_leaves(list(objs), []))
+
+
+class WeakCache:
+    """A bounded LRU map from (owner objects, static key) to a value built
+    by ``make``. Owners are held weakly: an entry goes when one dies. An
+    entry whose owners' :func:`fingerprint` changed is built anew. The
+    value must not hold an owner strongly, or the entry never goes."""
+
+    def __init__(self, max_entries: int):
+        self.max_entries = max_entries
+        self._entries: OrderedDict = OrderedDict()
+
+    def get(self, owners: tuple, key, make: Callable):
+        k = (tuple(id(o) for o in owners), key)
+        fp = fingerprint(*owners)
+        hit = self._entries.get(k)
+        if hit is not None and all(r() is o for r, o in zip(hit[0], owners)) and hit[1] == fp:
+            self._entries.move_to_end(k)
+            return hit[2]
+        self._entries.pop(k, None)
+        value = make()
+        entries = self._entries
+        refs = tuple(weakref.ref(o, lambda _r, k=k: entries.pop(k, None)) for o in owners)
+        entries[k] = (refs, fp, value)
+        while len(entries) > self.max_entries:
+            entries.popitem(last=False)
+        return value
+
+    def values(self) -> list:
+        return [v for _, _, v in self._entries.values()]
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+@contextlib.contextmanager
+def _sync_debug_error():
+    """Raise on any op that synchronises the host with the device."""
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+@contextlib.contextmanager
+def _taken_back():
+    """Yields a list that receives the (binary, bvh4) launches the block
+    enqueued, and restores both counters: a capture launches nothing."""
+    counts = []
+    l2, l4 = pallas_traverse.launches, pallas_traverse.launches4
+    try:
+        yield counts
+    finally:
+        counts[:] = [pallas_traverse.launches - l2, pallas_traverse.launches4 - l4]
+        pallas_traverse.launches, pallas_traverse.launches4 = l2, l4
+
+
+class Unit:
+    """One launch unit captured from ``body`` (see ``render._BandBody``):
+    the graphs of its stages, its static input buffer ``inputs`` (int64:
+    key words, sample offset, first row), its all-finished ``flag`` and its
+    static output. ``start``, ``step`` and ``finish`` replay the stages,
+    so :func:`drive` runs a unit as it runs an eager body."""
+
+    STAGES = ("start", "step", "finish")
+
+    def __init__(self, body, device):
+        device = torch.device(device)
+        self.label = body.label
+        self.inputs, self.flag = body.inputs, body.flag
+        self.steps, self.trips_per_step = body.steps, body.trips_per_step
+        stages = [s for s in self.STAGES if s != "step" or body.steps]
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), _sync_debug_error():
+            for s in stages:
+                getattr(body, s)()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        self.warmup_s = time.perf_counter() - t0
+        # each capture empties the allocator's cache first; empty it here
+        # too, so the reserved bytes the captures add are the pool's
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        pool = torch.cuda.graph_pool_handle()
+        self._graphs = {}
+        for s in stages:
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
+                    out = getattr(body, s)()
+            except RuntimeError as e:
+                raise RuntimeError(f"capturing stage {s!r} of {self.label} failed: {e}") from e
+            self._graphs[s] = (graph, tuple(counts))
+        self.out = out  # the finish stage's static output
+        self.capture_s = time.perf_counter() - t0 - self.warmup_s
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        # what the graphs read besides the scene's and camera's own
+        # tensors (which their owners keep alive while the unit lives)
+        self._keep = (body.ctx, body.lanes, body.state)
+        self.replays = 0
+
+    def _replay(self, stage: str):
+        graph, (n2, n4) = self._graphs[stage]
+        graph.replay()
+        pallas_traverse.launches += n2
+        pallas_traverse.launches4 += n4
+
+    def start(self):
+        self.replays += 1
+        self._replay("start")
+
+    def step(self):
+        self._replay("step")
+
+    def finish(self):
+        self._replay("finish")
+        return self.out
+
+    def describe(self) -> dict:
+        """The unit's numbers; ``launches`` maps each stage to the (binary,
+        bvh4) kernel launches one replay of it makes."""
+        return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
+                    pool_bytes=self.pool_bytes, replays=self.replays,
+                    launches={s: c for s, (_, c) in self._graphs.items()},
+                    trips_per_step=self.trips_per_step, max_steps=self.steps)
+
+
+def drive(body) -> tuple:
+    """Run a unit or an eager body: ``start``, then ``step`` until the
+    all-finished flag is set (read once per block) or ``steps`` blocks ran,
+    then ``finish``. Returns (output, loop trips run)."""
+    body.start()
+    n = 0
+    while n < body.steps:
+        body.step()
+        n += 1
+        if n < body.steps and bool(body.flag):
+            break
+    return body.finish(), n * body.trips_per_step
+
+
+_UNITS = WeakCache(MAX_UNITS)
+CONTEXTS = WeakCache(8)
+
+
+def unit(owners: tuple, key, make_body: Callable) -> Unit:
+    """The captured unit of ``key`` for ``owners`` (scene, camera),
+    capturing it from ``make_body()`` on a miss. ``key`` holds everything
+    else the body bakes in (options, samples, rows, device)."""
+    def capture():
+        body = make_body()
+        return Unit(body, body.inputs.device)
+
+    return _UNITS.get(owners, key, capture)
+
+
+def units() -> list:
+    """``describe()`` of every live unit, least recently used first."""
+    return [u.describe() for u in _UNITS.values()]
+
+
+def clear() -> None:
+    """Drop every captured unit and every cached render context (a caller
+    that swaps a traversal function or the table packer under a live
+    scene calls this)."""
+    _UNITS.clear()
+    CONTEXTS.clear()

@@ -181,8 +181,11 @@ def _integrate_direct_mis(ctx, surf: Surface, wo, throughput, bounce):
 
 def _first_hit(surf: Surface, bounce):
     """(N, 1) mask of lanes at bounce 0 (``bounce`` an int or a lane tensor)."""
-    first = torch.as_tensor(bounce, device=surf.t.device) == 0
-    return first.expand(surf.t.shape)[..., None]
+    if isinstance(bounce, torch.Tensor):
+        first = (bounce == 0).expand(surf.t.shape)
+    else:
+        first = torch.full(surf.t.shape, bounce == 0, dtype=torch.bool, device=surf.t.device)
+    return first[..., None]
 
 
 def _integrate_debug_mono(ctx, surf: Surface, wo, throughput, bounce):
@@ -196,15 +199,14 @@ def _integrate_debug_depth(ctx, surf: Surface, wo, throughput, bounce):
     return torch.where(_first_hit(surf, bounce), d[..., None], 0.0)
 
 
-_NORMAL_COLORS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0),  # +x +y +z
-                  (0.0, 1.0, 1.0), (1.0, 0.0, 1.0), (1.0, 1.0, 0.0))  # -x -y -z
-
-
 def _integrate_debug_normals(ctx, surf: Surface, wo, throughput, bounce):
     """Signed-normal color map: each axis's positive and negative part
-    mixes its own color."""
+    mixes its own color: +x red, +y green, +z blue, -x cyan, -y magenta,
+    -z yellow. The colors are made on the device (no host copy inside a
+    captured graph)."""
     n = surf.normal
-    cols = [torch.tensor(c, dtype=torch.float32, device=n.device) for c in _NORMAL_COLORS]
+    e = torch.eye(3, dtype=torch.float32, device=n.device)
+    cols = [e[0], e[1], e[2], e[1] + e[2], e[0] + e[2], e[0] + e[1]]
     p = torch.clamp(n, 0.0, 1.0)
     m = -torch.clamp(n, -1.0, 0.0)
     color = (p[..., 0:1] * cols[0] + p[..., 1:2] * cols[1] + p[..., 2:3] * cols[2]

@@ -38,7 +38,8 @@ def mask_dead_rays(active, o, d):
     """Replace rays of inactive lanes with the canonical miss ray."""
     live = active[..., None]
     o_q = torch.where(live, o, MISS_ORIGIN)
-    d_q = torch.where(live, d, torch.tensor([1.0, 0.0, 0.0], dtype=o.dtype, device=o.device))
+    # (1, 0, 0) made on the device: no host copy inside a captured graph
+    d_q = torch.where(live, d, torch.eye(1, 3, dtype=o.dtype, device=o.device))
     return o_q, d_q
 
 

@@ -7,6 +7,11 @@ exactly the random decisions of the JAX renderer and of its NumPy mirror.
 PyTorch has no uint32 add or shift on the CPU, so every 32-bit word is an
 int64 tensor holding a value in ``[0, 2**32)``; each add and left shift is
 masked back to 32 bits. The same code runs on CPU and CUDA tensors.
+
+The key words and the bounce may be python ints or int64 tensors on the
+lanes' device. Python ints stay python ints (kernel arguments, never a
+host-to-device copy); a (2,) key tensor lets one captured CUDA graph serve
+every seed (``graphs.py``), with the same ``& 0xFFFFFFFF`` arithmetic.
 """
 from __future__ import annotations
 
@@ -31,6 +36,13 @@ def _u32(x, like=None):
     return torch.as_tensor(int(x) & _M32, dtype=torch.int64, device=device)
 
 
+def _word(x):
+    """A 32-bit word kept as it came: an int64 tensor or a python int."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & _M32
+    return int(x) & _M32
+
+
 def _rotl32(x, r: int):
     return ((x << r) & _M32) | (x >> (32 - r))
 
@@ -38,13 +50,14 @@ def _rotl32(x, r: int):
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32-20 block cipher on broadcastable 32-bit words.
 
-    ``k0``/``k1`` may be python ints; ``x0``/``x1`` are integer tensors.
-    Returns two int64 tensors of words in ``[0, 2**32)``.
+    ``k0``/``k1`` may be python ints or 0-d int64 tensors (the words of a
+    (2,) key tensor); ``x0``/``x1`` are integer tensors. Returns two int64
+    tensors of words in ``[0, 2**32)``.
     """
     x0 = _u32(x0)
     x1 = _u32(x1, x0)
-    k0 = int(k0) & _M32
-    k1 = int(k1) & _M32
+    k0 = _word(k0)
+    k1 = _word(k1)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -96,7 +109,7 @@ def _pack_counter(sample_idx, bounce, stream):
     """Second counter word: sample in the top 20 bits, bounce in 6, stream
     in 6. ``bounce`` may be an int or a per-lane tensor."""
     s = _u32(sample_idx)
-    b = _u32(bounce, s)
+    b = _word(bounce)
     return ((s << 12) & _M32) | ((b << 6) & _M32) | int(stream)
 
 

@@ -37,7 +37,7 @@ import torch.distributed as dist
 
 from ..film import Film
 from ..ops import rng as rng_mod
-from ..render import _rows_per_launch, render_rows
+from ..render import _rows_per_launch, render_band
 from ..scene import Camera, RenderOptions, Scene
 
 __all__ = ["Mesh", "make_mesh", "local_device", "render_sharded", "render_chunk_sharded",
@@ -136,13 +136,14 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, device: str = "cuda",
 
 def _render_rows_bounded(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset: int,
                          spp: int, row0: int, rows: int):
-    """``render_rows`` in sub-bands of at most MAX_WAVEFRONT_LANES lanes: a
+    """``render_band`` in sub-bands of at most MAX_WAVEFRONT_LANES lanes: a
     pixel's sum does not depend on the rows beside it, so the result is
-    the one-call result bit for bit."""
+    the one-call result bit for bit. On a CUDA scene each sub-band replays
+    this rank's captured band graph; the collectives stay outside it."""
     step = _rows_per_launch(opts, spp)
     if step >= rows:
-        return render_rows(scene, cam, opts, key, sample_offset, spp, row0, rows)
-    return torch.cat([render_rows(scene, cam, opts, key, sample_offset, spp, row0 + b,
+        return render_band(scene, cam, opts, key, sample_offset, row0, spp, rows)
+    return torch.cat([render_band(scene, cam, opts, key, sample_offset, row0 + b, spp,
                                   min(step, rows - b)) for b in range(0, rows, step)])
 
 

@@ -7,8 +7,18 @@ per-lane active masks; the persistent-lane tracer
 its path ends. Both draw every random number from the counter-based
 threefry stream keyed by (pixel, sample, bounce, stream), so they replay
 the JAX renderer's decisions exactly. Loops that JAX compiles
-(``lax.scan``, ``lax.while_loop``) are Python loops here; PyTorch runs
-eagerly on the device of the scene's tensors.
+(``lax.scan``, ``lax.while_loop``) are Python loops here.
+
+Launch units: the JAX package renders through three jitted functions,
+:func:`render_chunk`, :func:`render_band` and :func:`render_chunks`, each
+one device program per call with the key, sample offset and first row
+traced. Here each is a CUDA graph on a CUDA scene, captured once per
+(scene, camera, options, samples, rows) and replayed with new inputs
+(``graphs.py``); on CPU tensors the same capture-safe body
+(:class:`_BandBody`) runs eagerly. :func:`render` goes through them in the
+reference's order. :func:`render_rows` is the eager body by name: every
+op dispatched from the host, the persistent loop's flag read every trip
+(the A/B baseline, and the body autograd records through).
 
 Gradients: :func:`trace` records autograd when its caller has it on, so a
 loss on its radiance reaches the scene's positions, attributes, emission,
@@ -20,12 +30,13 @@ that require gradients. :func:`render` never records a graph.
 """
 from __future__ import annotations
 
+import types
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import bsdf, camera as camera_mod, envmap, intersect
+from . import bsdf, camera as camera_mod, envmap, graphs, intersect
 from .accel import pallas_traverse, traverse
 from .film import Film
 from .integrators import make_integrator
@@ -35,13 +46,18 @@ from .scene import Accelerator, Camera, Integrator, Intersector, LightPick, Rend
     SamplingMethod, Scene
 from .surface import build_shade_tables, surface_init
 
-__all__ = ["render", "render_rows", "trace", "trace_persistent", "make_raycast_fn"]
+__all__ = ["render", "render_chunk", "render_band", "render_chunks", "render_rows", "trace",
+           "trace_persistent", "make_raycast_fn"]
 
 EPS = 1e-4
 # Largest wavefront one render_rows call carries; bigger frames are split
 # into row bands. The bounce body keeps a few dozen (N, 3) f32 temporaries
 # alive, about 1 KB a lane, so 2^21 lanes stay near 2 GB of device memory.
 MAX_WAVEFRONT_LANES = 1 << 21
+
+# Persistent-loop trips run since import (eager trips one by one, captured
+# blocks by their trip count); reset it before the run to count.
+trips = 0
 
 
 def make_raycast_fn(scene: Scene, opts: RenderOptions):
@@ -60,10 +76,13 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
         tables = pallas_traverse.pack_tables_auto(scene.bvh, *corners)
         leaf_of = traverse.leaf_of_tri_table(scene.bvh)
+        # the closure holds the tree, not the scene: cached contexts and
+        # captured graphs must not keep a scene alive
+        tree = types.SimpleNamespace(bvh=scene.bvh)
 
         def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
             o = o + d * intersect.RAY_OFFSET_DIR
-            return pallas_traverse.raycast(scene, o, d, t_max=t_max, any_hit=any_hit,
+            return pallas_traverse.raycast(tree, o, d, t_max=t_max, any_hit=any_hit,
                                            sort_hint=sort_hint, algo=algo, tables=tables,
                                            leaf_of_tri=leaf_of)
 
@@ -147,27 +166,53 @@ def _shade(scene, ctx_base, integrator, hit, o, d, active, throughput, bounce, u
     """Surface, integrator radiance and the per-lane delta mask of one
     bounce."""
     surf = surface_init(scene, ctx_base["tables"], o + d * intersect.RAY_OFFSET_DIR, d, hit.tri)
-    ctx = dict(ctx_base, rng=lambda _bounce, stream: u[stream], ray_origin=o, active=active,
-               emit_ok=emit_ok, delta=bsdf.delta_mask(surf, ctx_base["present"]),
+    ctx = dict(ctx_base, scene=scene, rng=lambda _bounce, stream: u[stream], ray_origin=o,
+               active=active, emit_ok=emit_ok, delta=bsdf.delta_mask(surf, ctx_base["present"]),
                hit_tri=torch.where(active, hit.tri, -1))
     radiance = integrator(ctx, surf, -d, throughput, bounce)
     return surf, radiance, ctx["delta"]
 
 
-def _context(scene: Scene, opts: RenderOptions):
+def _build_context(scene: Scene, opts: RenderOptions):
     present = scene.materials.types_present
-    return dict(scene=scene, raycast=make_raycast_fn(scene, opts),
+    return dict(raycast=make_raycast_fn(scene, opts),
                 tables=build_shade_tables(scene), present=present,
                 light_area=opts.light_pick == LightPick.AREA,
                 env_dist=envmap.build_distribution(scene) if opts.env_nee else None,
                 has_delta=any(t in present for t in bsdf.DELTA_TYPES))
 
 
+def _scene_wants_grad(scene: Scene) -> bool:
+    """Autograd is on and a scene tensor requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    g, m = scene.geometry, scene.materials
+    return any(t.requires_grad for t in (g.positions, g.normals, g.uvs, m.attrs, m.emissive,
+                                         m.ior, scene.textures.data, scene.env_value))
+
+
+def _context(scene: Scene, opts: RenderOptions):
+    """What a trace needs besides the scene, built on the host: the raycast
+    with its packed tables, the shading tables, the env distribution. Built
+    once per (scene, traversal options) and reused until a scene tensor
+    changes (``graphs.CONTEXTS``); built anew under autograd, where the
+    shading tables carry the scene's gradient."""
+    if _scene_wants_grad(scene):
+        return _build_context(scene, opts)
+    return graphs.CONTEXTS.get((scene,), (opts.accelerator, opts.intersector, opts.env_nee,
+                                          opts.light_pick),
+                               lambda: _build_context(scene, opts))
+
+
 def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
     """Trace a wavefront of primary rays for ``bounces + 1`` bounces.
     Returns (N, 3) f32 radiance per lane, differentiable in the scene's
     tensors and the rays when autograd is on."""
-    ctx_base = _context(scene, opts)
+    return _trace(scene, _context(scene, opts), opts, key, o, d, pixel_idx, sample_idx)
+
+
+def _trace(scene: Scene, ctx_base: dict, opts: RenderOptions, key, o, d, pixel_idx,
+           sample_idx):
     integrator = make_integrator(opts.integrator)
     streams = _streams_for(opts.integrator, opts.env_nee)
     n = o.shape[0]
@@ -205,12 +250,8 @@ def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
 
 def _wants_grad(scene: Scene, cam: Camera) -> bool:
     """Autograd is on and a scene or camera tensor requires a gradient."""
-    if not torch.is_grad_enabled():
-        return False
-    g, m = scene.geometry, scene.materials
-    return any(t.requires_grad for t in (
-        g.positions, g.normals, g.uvs, m.attrs, m.emissive, m.ior, scene.textures.data,
-        scene.env_value, cam.position, cam.direction, cam.up, cam.fov_deg))
+    return _scene_wants_grad(scene) or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (cam.position, cam.direction, cam.up, cam.fov_deg)))
 
 
 def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_idx, px, py,
@@ -227,84 +268,106 @@ def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_
         raise RuntimeError(
             "trace_persistent has no gradient (a while loop in the reference); render "
             "with samples_per_lane=1 to differentiate")
+    global trips
     with torch.no_grad():
-        return _trace_persistent(scene, opts, cam, key, pixel_idx, px, py, sample_base, quota)
+        ctx = _context(scene, opts)
+        lanes = (pixel_idx, px, py)
+        st = _persistent_start(scene, ctx, opts, cam, key, lanes, sample_base)
+        for _ in range(quota * (opts.bounces + 1)):
+            if bool(st["finished"].all()):
+                break
+            st = _persistent_trip(scene, ctx, opts, cam, key, lanes, quota, st)
+            trips += 1
+        return st["lo_total"]
 
 
-def _trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key, pixel_idx, px, py,
-                      sample_base, quota: int):
-    ctx_base = _context(scene, opts)
+def _new_ray(opts: RenderOptions, cam: Camera, key, lanes, sample_idx):
+    pixel_idx, px, py = lanes
+    r1, r2 = _pixel_jitter(opts, key, pixel_idx, sample_idx)
+    return camera_mod.generate_rays(cam, opts.width, opts.height, px, py, opts.subpixel_jitter,
+                                    r1, r2)
+
+
+def _persistent_start(scene: Scene, ctx: dict, opts: RenderOptions, cam: Camera, key, lanes,
+                      sample_base) -> dict:
+    """The persistent loop's carry before its first trip."""
+    n = lanes[0].shape[0]
+    dev = lanes[0].device
+    sample = sample_base.to(torch.int64).clone()
+    o, d = _new_ray(opts, cam, key, lanes, sample)
+    finished = torch.zeros((n,), dtype=torch.bool, device=dev)
+    st = dict(o=o, d=d, throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
+              lo_sample=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+              lo_total=torch.zeros((n, 3), dtype=torch.float32, device=dev), sample=sample,
+              bounce=torch.zeros((n,), dtype=torch.int64, device=dev),
+              done=torch.zeros((n,), dtype=torch.int64, device=dev), finished=finished,
+              prev_tri=torch.full((n,), -1, dtype=torch.int32, device=dev))
+    if ctx["has_delta"]:  # the specular-bounce flag
+        st["emit_ok"] = ~finished
+    return st
+
+
+def _persistent_trip(scene: Scene, ctx: dict, opts: RenderOptions, cam: Camera, key, lanes,
+                     quota: int, st: dict) -> dict:
+    """One trip of the persistent loop: the carry after it. A trip after
+    every lane finished changes no word of ``lo_total``: no lane is
+    active, so every sum adds 0.0, as for a finished lane beside running
+    ones."""
     integrator = make_integrator(opts.integrator)
     streams = _streams_for(opts.integrator, opts.env_nee)
-    n = pixel_idx.shape[0]
-    dev = pixel_idx.device
+    o, d, throughput, bounce = st["o"], st["d"], st["throughput"], st["bounce"]
+    lo_sample, emit_ok = st["lo_sample"], st.get("emit_ok")
+    active = ~st["finished"]
+    u = rng_mod.path_uniform_bundle(key, lanes[0], st["sample"], bounce, streams)
+    hit = ctx["raycast"](*intersect.mask_dead_rays(active, o, d),
+                         sort_hint=torch.where(active, st["prev_tri"], -1))
+    if opts.env_on_miss:
+        lo_sample = lo_sample + _miss_env(scene, opts, d, throughput, active & ~hit.hit,
+                                          emit_ok, bounce)
+    alive = active & hit.hit
+    surf, radiance, delta = _shade(scene, ctx, integrator, hit, o, d, alive, throughput, bounce,
+                                   u, emit_ok)
+    lo_sample = lo_sample + torch.where(alive[..., None], radiance, 0.0)
 
-    def new_ray(sample_idx):
-        r1, r2 = _pixel_jitter(opts, key, pixel_idx, sample_idx)
-        return camera_mod.generate_rays(cam, opts.width, opts.height, px, py,
-                                        opts.subpixel_jitter, r1, r2)
+    wi, new_tp, cont_o = _continue(surf, u, -d, throughput, ctx["present"])
+    p = math3.max3(new_tp)
+    rr_on = bounce >= opts.rr_start_bounce
+    survive = alive & torch.where(rr_on, u[S.ROULETTE] <= p, True) & (bounce < opts.bounces)
+    new_tp = torch.where(rr_on[..., None], new_tp / (p + EPS)[..., None], new_tp)
 
-    sample = sample_base.to(torch.int64).clone()
-    o, d = new_ray(sample)
-    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    lo_sample = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    lo_total = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    bounce = torch.zeros((n,), dtype=torch.int64, device=dev)
-    done = torch.zeros((n,), dtype=torch.int64, device=dev)
-    finished = torch.zeros((n,), dtype=torch.bool, device=dev)
-    prev_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    emit_ok = ~finished if ctx_base["has_delta"] else None
-    for _ in range(quota * (opts.bounces + 1)):
-        if bool(finished.all()):
-            break
-        active = ~finished
-        u = rng_mod.path_uniform_bundle(key, pixel_idx, sample, bounce, streams)
-        hit = ctx_base["raycast"](*intersect.mask_dead_rays(active, o, d),
-                                  sort_hint=torch.where(active, prev_tri, -1))
-        if opts.env_on_miss:
-            lo_sample = lo_sample + _miss_env(scene, opts, d, throughput, active & ~hit.hit,
-                                              emit_ok, bounce)
-        alive = active & hit.hit
-        surf, radiance, delta = _shade(scene, ctx_base, integrator, hit, o, d, alive,
-                                       throughput, bounce, u, emit_ok)
-        lo_sample = lo_sample + torch.where(alive[..., None], radiance, 0.0)
+    # a path that ends banks its sample, then regenerates or finishes
+    path_end = active & ~survive
+    done = st["done"] + path_end
+    lo_total = st["lo_total"] + torch.where(path_end[..., None], lo_sample, 0.0)
+    need_more = done < quota
+    regen = path_end & need_more
+    finished = st["finished"] | (path_end & ~need_more)
+    sample = st["sample"] + path_end
 
-        wi, new_tp, cont_o = _continue(surf, u, -d, throughput, ctx_base["present"])
-        p = math3.max3(new_tp)
-        rr_on = bounce >= opts.rr_start_bounce
-        survive = alive & torch.where(rr_on, u[S.ROULETTE] <= p, True) & (bounce < opts.bounces)
-        new_tp = torch.where(rr_on[..., None], new_tp / (p + EPS)[..., None], new_tp)
-
-        # a path that ends banks its sample, then regenerates or finishes
-        path_end = active & ~survive
-        done = done + path_end
-        lo_total = lo_total + torch.where(path_end[..., None], lo_sample, 0.0)
-        need_more = done < quota
-        regen = path_end & need_more
-        finished = finished | (path_end & ~need_more)
-        sample = sample + path_end
-
-        ro, rd = new_ray(sample)
-        rg, sv = regen[..., None], survive[..., None]
-        o = torch.where(rg, ro, torch.where(sv, cont_o, o))
-        d = torch.where(rg, rd, torch.where(sv, wi, d))
-        throughput = torch.where(rg, 1.0, torch.where(sv, new_tp, throughput))
-        lo_sample = torch.where(path_end[..., None], 0.0, lo_sample)
-        bounce = torch.where(regen, 0, torch.where(survive, bounce + 1, bounce))
-        prev_tri = torch.where(regen, -1, torch.where(survive, hit.tri, prev_tri))
-        if emit_ok is not None:  # fresh paths start True; continuations carry delta
-            emit_ok = regen | delta
-    return lo_total
+    ro, rd = _new_ray(opts, cam, key, lanes, sample)
+    rg, sv = regen[..., None], survive[..., None]
+    out = dict(o=torch.where(rg, ro, torch.where(sv, cont_o, o)),
+               d=torch.where(rg, rd, torch.where(sv, wi, d)),
+               throughput=torch.where(rg, 1.0, torch.where(sv, new_tp, throughput)),
+               lo_sample=torch.where(path_end[..., None], 0.0, lo_sample), lo_total=lo_total,
+               sample=sample,
+               bounce=torch.where(regen, 0, torch.where(survive, bounce + 1, bounce)),
+               done=done, finished=finished,
+               prev_tri=torch.where(regen, -1, torch.where(survive, hit.tri, st["prev_tri"])))
+    if emit_ok is not None:  # fresh paths start True; continuations carry delta
+        out["emit_ok"] = regen | delta
+    return out
 
 
-def _lane_ids(opts: RenderOptions, spp_chunk: int, sample_offset: int, row0: int, rows: int,
-              device):
+def _lane_ids(opts: RenderOptions, spp_chunk: int, sample_offset, row0, rows: int, device):
     """Pixel-major lanes, ``spp_chunk`` consecutive lanes per pixel, for
     the band of ``rows`` rows from ``row0``. Pixel ids stay global, so the
-    random stream does not depend on banding. Returns (pixel_idx, px, py,
+    random stream does not depend on banding. ``sample_offset`` and
+    ``row0`` are ints or 0-d int64 tensors on ``device`` (a captured graph
+    reads them from its input buffer). Returns (pixel_idx, px, py,
     sample_idx), int64."""
     band = torch.arange(rows * opts.width, dtype=torch.int64, device=device)
-    pixel_idx = torch.repeat_interleave(band, spp_chunk) + row0 * opts.width
+    pixel_idx = band[:, None].expand(-1, spp_chunk).reshape(-1) + row0 * opts.width
     px = pixel_idx % opts.width
     py = pixel_idx // opts.width
     sample_idx = torch.arange(spp_chunk, dtype=torch.int64, device=device).repeat(
@@ -324,7 +387,9 @@ def _quota(opts: RenderOptions, spp_chunk: int) -> int:
 def render_rows(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset: int,
                 spp_chunk: int, row0: int, rows: int):
     """Radiance sum (rows, W, 3) of ``spp_chunk`` samples per pixel over
-    the band of ``rows`` rows from ``row0``."""
+    the band of ``rows`` rows from ``row0``, run eagerly: the body that
+    :func:`render_band` captures, with every op dispatched from the host
+    and the persistent loop's flag read on every trip."""
     dev = scene.device
     quota = _quota(opts, spp_chunk)
     if quota > 1:
@@ -339,6 +404,144 @@ def render_rows(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offs
                                     r1, r2)
     lo = trace(scene, opts, key, o, d, pixel_idx, sample_idx)
     return lo.reshape(rows, opts.width, spp_chunk, 3).sum(dim=2)
+
+
+class _BandBody:
+    """The capture-safe body of one launch unit: :func:`render_rows`'s
+    work for a band of ``rows`` rows and ``spp_chunk`` samples, in three
+    stages that read the key, the sample offset and the first row from the
+    int64 buffer ``inputs`` (k0, k1, offset, row0) and never read the
+    device from the host:
+
+      start  — lane ids, the first camera rays, the loop carry (on the
+               fixed-depth path, with ``samples_per_lane`` 1: the whole
+               trace);
+      step   — ``trips_per_step`` trips of the persistent loop, the carry
+               updated in place, ``flag`` set when every lane finished;
+      finish — the (rows, W, 3) radiance sum.
+
+    ``steps`` blocks reach the loop's bound ``quota * (bounces + 1)``:
+    blocks of ``bounces + 1`` trips, one path's longest, so at most
+    ``bounces`` trips run after the last lane finished (they change no
+    output word). ``graphs.Unit`` captures the stages; ``graphs.drive``
+    runs them, or runs this body eagerly on the CPU."""
+
+    def __init__(self, scene: Scene, cam: Camera, opts: RenderOptions, spp_chunk: int,
+                 rows: int):
+        dev = scene.device
+        self.label = (f"render_band({opts.width}x{rows} rows, {spp_chunk} spp, {opts.bounces} "
+                      f"bounces, {Integrator(opts.integrator).name})")
+        self.scene, self.cam, self.opts = scene, cam, opts
+        self.spp, self.rows = spp_chunk, rows
+        self.ctx = _context(scene, opts)
+        self.quota = _quota(opts, spp_chunk)
+        self.inputs = torch.zeros((4,), dtype=torch.int64, device=dev)
+        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+        persistent = self.quota > 1
+        self.trips_per_step = opts.bounces + 1 if persistent else 0
+        self.steps = self.quota if persistent else 0
+        self.lanes, self.state = None, {}
+
+    def start(self):
+        opts, dev = self.opts, self.inputs.device
+        key, offset, row0 = self.inputs[0:2], self.inputs[2], self.inputs[3]
+        if self.quota > 1:
+            lanes_pp = self.spp // self.quota
+            pixel_idx, px, py, sample_idx = _lane_ids(opts, lanes_pp, offset, row0, self.rows,
+                                                      dev)
+            lane_base = offset + (sample_idx - offset) * self.quota
+            self.lanes = (pixel_idx, px, py)
+            st = _persistent_start(self.scene, self.ctx, opts, self.cam, key, self.lanes,
+                                   lane_base)
+            # own storage per entry (the camera origins are an expanded
+            # view), as ``step`` writes the carry in place
+            self.state = {k: v.contiguous() for k, v in st.items()}
+            return
+        pixel_idx, px, py, sample_idx = _lane_ids(opts, self.spp, offset, row0, self.rows, dev)
+        r1, r2 = _pixel_jitter(opts, key, pixel_idx, sample_idx)
+        o, d = camera_mod.generate_rays(self.cam, opts.width, opts.height, px, py,
+                                        opts.subpixel_jitter, r1, r2)
+        self.state = dict(lo_total=_trace(self.scene, self.ctx, opts, key, o, d, pixel_idx,
+                                          sample_idx))
+
+    def step(self):
+        st = self.state
+        for _ in range(self.trips_per_step):
+            st = _persistent_trip(self.scene, self.ctx, self.opts, self.cam, self.inputs[0:2],
+                                  self.lanes, self.quota, st)
+        for k, v in st.items():
+            self.state[k].copy_(v)
+        self.flag.copy_(self.state["finished"].all())
+
+    def finish(self):
+        lanes_pp = self.spp // self.quota
+        return self.state["lo_total"].reshape(self.rows, self.opts.width, lanes_pp, 3).sum(dim=2)
+
+
+def _set_inputs(buf, key, sample_offset, row0) -> None:
+    """Key words, sample offset and first row into a unit's int64 input
+    buffer: one copy from the host for python values, device copies for
+    tensors."""
+    parts = (key, sample_offset, row0)
+    if not any(isinstance(x, torch.Tensor) for x in parts):
+        buf.copy_(torch.as_tensor(np.asarray([*key, sample_offset, row0], dtype=np.int64)))
+        return
+    for dst, x in zip((buf[0:2], buf[2:3], buf[3:4]), parts):
+        if isinstance(x, torch.Tensor):
+            dst.copy_(x.reshape(dst.shape))
+        else:
+            dst.copy_(torch.as_tensor(np.asarray(x, dtype=np.int64).reshape(dst.shape)))
+
+
+def _unit_sum(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset, row0,
+              spp_chunk: int, rows: int):
+    """One launch unit's radiance sum (rows, W, 3): the replayed graph on a
+    CUDA scene (its static output: copy it before the next replay), the
+    capture-safe body run eagerly on the CPU."""
+    global trips
+    dev = scene.device
+    if dev.type == "cuda":
+        body = graphs.unit((scene, cam), (opts, spp_chunk, rows, dev),
+                           lambda: _BandBody(scene, cam, opts, spp_chunk, rows))
+    else:
+        body = _BandBody(scene, cam, opts, spp_chunk, rows)
+    _set_inputs(body.inputs, key, sample_offset, row0)
+    out, n = graphs.drive(body)
+    trips += n
+    return out
+
+
+@torch.no_grad()
+def render_band(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset, row0,
+                spp_chunk: int, rows: int):
+    """``rows`` pixel rows from ``row0`` in one launch unit: the (rows, W,
+    3) radiance sum of ``spp_chunk`` samples from ``sample_offset``. One
+    capture serves every key, offset and first row (ints or 0-d tensors;
+    ``key`` a pair of words or a (2,) int tensor). No gradient."""
+    acc = _unit_sum(scene, cam, opts, key, sample_offset, row0, spp_chunk, rows)
+    return acc.clone() if acc.is_cuda else acc
+
+
+@torch.no_grad()
+def render_chunk(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset,
+                 spp_chunk: int):
+    """One launch unit: the (H, W, 3) radiance sum of ``spp_chunk`` samples
+    for every pixel (the accumulation plane contribution). No gradient."""
+    acc = _unit_sum(scene, cam, opts, key, sample_offset, 0, spp_chunk, opts.height)
+    return acc.clone() if acc.is_cuda else acc
+
+
+@torch.no_grad()
+def render_chunks(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset,
+                  spp_chunk: int, n_chunks: int):
+    """``n_chunks`` sample chunks: the chunk unit replayed once per chunk
+    and its sums added from zero in the reference's order (its ``lax.scan``
+    carry). The live wavefront is one chunk. No gradient."""
+    acc = torch.zeros((opts.height, opts.width, 3), dtype=torch.float32, device=scene.device)
+    for i in range(n_chunks):
+        acc = acc + _unit_sum(scene, cam, opts, key, sample_offset + i * spp_chunk, 0,
+                              spp_chunk, opts.height)
+    return acc
 
 
 def _rows_per_launch(opts: RenderOptions, spp_chunk: int) -> int:
@@ -375,10 +578,12 @@ def render(scene: Scene, cam: Camera, opts: RenderOptions, seed: int = 0,
            film: Optional[Film] = None) -> Film:
     """Progressive render on the scene's device: adds
     ``opts.samples_per_pixel`` samples to ``film`` (a new one if None).
-    Pass the returned film back in to keep accumulating. The film adds in
-    the reference's order: banded frames chunk by chunk and band by band;
-    otherwise (without ``debug_checks``) the full chunks are summed from
-    zero and that sum is added once, then the remainder chunk."""
+    Pass the returned film back in to keep accumulating. It goes through
+    the launch units in the reference's order: banded frames band by band
+    per chunk (:func:`render_band`); otherwise (without ``debug_checks``)
+    the full chunks in one :func:`render_chunks` summed from zero and
+    added once, then the remainder by :func:`render_chunk`. On a CUDA
+    scene each unit is a captured graph; a capture that fails raises."""
     if film is None:
         film = Film.create(opts.width, opts.height, scene.device)
     key = rng_mod.key_from_seed(seed)
@@ -399,7 +604,7 @@ def render(scene: Scene, cam: Camera, opts: RenderOptions, seed: int = 0,
             cur = min(chunk, spp - done)
             acc = film.acc.clone()
             for b0 in range(0, h, band):
-                part = render_rows(scene, cam, opts, key, base + done, cur, b0, band)
+                part = render_band(scene, cam, opts, key, base + done, b0, cur, band)
                 if opts.debug_checks:
                     _validate_acc(part, f"chunk at sample offset {base + done}, rows from {b0}")
                 acc[b0:b0 + band] = acc[b0:b0 + band] + part
@@ -408,14 +613,12 @@ def render(scene: Scene, cam: Camera, opts: RenderOptions, seed: int = 0,
         return film
     n_full = spp // chunk
     if n_full > 1 and not opts.debug_checks:
-        acc = torch.zeros_like(film.acc)
-        for i in range(n_full):
-            acc = acc + render_rows(scene, cam, opts, key, base + i * chunk, chunk, 0, h)
+        acc = render_chunks(scene, cam, opts, key, base, chunk, n_full)
         film = Film(acc=film.acc + acc, samples=film.samples + n_full * chunk)
         done = n_full * chunk
     while done < spp:
         cur = min(chunk, spp - done)
-        acc = render_rows(scene, cam, opts, key, base + done, cur, 0, h)
+        acc = render_chunk(scene, cam, opts, key, base + done, cur)
         if opts.debug_checks:
             _validate_acc(acc, f"chunk at sample offset {base + done}")
         film = Film(acc=film.acc + acc, samples=film.samples + cur)
