@@ -78,20 +78,22 @@ exits non-zero (there is no CPU fallback):
   6. inverse rendering (``optim.py`` on torch autograd): 6a bench config 4
      (the blockless Cornell box by brute force, 32x32, 8 spp, 2 bounces,
      DIRECT, Adam 3e-2 on attrs from a wall albedo of [0.3, 0.5, 0.6]; one
-     warm-up step, then 20 timed, CUDA events and host clock; the loss must
-     fall); 6b the same on BVH trees of both builders (SAH, LBVH), so the
-     BVH4 kernel runs under autograd: the albedo gradient against 6a's
-     within 1e-3, against a central difference within 5%, two calls equal
-     bit for bit; 6c ``recover`` on the 242k courtyard at 3b's size (cut:
-     one sample per lane, rr_start_bounce 8) for 4 Adam steps on attrs,
-     textures and positions with a host refit every step: ms per step split
-     into forward, backward, Adam and refit plus repack, BVH4 launches per
-     step, peak memory, losses; gates: finite losses and gradients, every
-     leaf box holds its moved triangles, two gradient calls equal bit for
-     bit (deterministic algorithms on; also timed and compared off), and
-     the loss on fixed samples falls under a textures-only recover; 6d the
-     12x12 gradient of ``test_grad_albedo_matches_fd`` on CPU and CUDA
-     tensors within 1e-3;
+     step that captures the training unit, then 20 timed, CUDA events and
+     host clock; the loss must fall); 6b the same on BVH trees of both
+     builders (SAH, LBVH), so the BVH4 kernel runs under autograd: the
+     albedo gradient against 6a's within 1e-3, against a central difference
+     within 5%, two calls equal bit for bit; 6c ``recover`` on the 242k
+     courtyard at 3b's size (cut: one sample per lane, rr_start_bounce 8)
+     for 4 Adam steps on attrs, textures and positions with a host refit
+     every step, on eager steps (``value_and_grad`` and ``Adam.step``, every
+     op from the host: the A/B baseline of 10c): ms per step split into
+     forward, backward, Adam and refit plus repack, BVH4 launches per step,
+     peak memory, losses; gates: finite losses and gradients, every leaf
+     box holds its moved triangles, two gradient calls equal bit for bit
+     (deterministic algorithms on; also timed and compared off), and the
+     loss on fixed samples falls under a textures-only recover (graphed);
+     6d the 12x12 gradient of ``test_grad_albedo_matches_fd`` on CPU and
+     CUDA tensors within 1e-3;
   7. the command line at full width: 7a the 242k courtyard written as OBJ +
      MTL + two PNG textures (z negated, faces wound (v0, v2, v1), floats as
      %.9g, texels as round(255 v^(1/2.2))) and read back by
@@ -121,8 +123,8 @@ exits non-zero (there is no CPU fallback):
      and ``make_train_step`` on this process (loss and every field within
      1e-5 of its largest entry, grad_chunks 1 against 2 too, parameters
      and refit boxes bit-identical on every rank), ms per step and peak
-     memory per rank; 8c bench config 5 through ``-m
-     terra_tpu_torch.scripts.pod_render``: the 4096 x 4096 Cornell box by
+     memory per rank; the same ranks run phase 10d; 8c bench config 5
+     through ``-m terra_tpu_torch.scripts.pod_render``: the 4096 x 4096 Cornell box by
      brute force, 4 bounces, DIRECT_MIS, chunks of 4, row bands of 2^21
      lanes, spp cut from 1024 to 8 (to 4 if one timed band says the phase
      would pass ~300 s); one NCCL rank killed by SIGKILL once its first
@@ -146,7 +148,29 @@ exits non-zero (there is no CPU fallback):
      replays, trips, peak memory and the graph pool's bytes, where a
      graphed render's time goes (CUDA events around each replay against the
      host clock; the profiler's kernel time by name), and 7c's CLI passes
-     through the graphs.
+     through the graphs;
+  10. the training units as CUDA graphs (``graphs.TrainUnit``; every
+     ``make_train_step``, sharded step and ``recover`` on the card above
+     already replays them): 10a config 4's graphed step against
+     ``value_and_grad`` at the same state and offset (loss and gradient bit
+     for bit), 20 more steps against the eager step with the same Adam
+     (parameters bit for bit, else within 1e-6 relative), ms per step
+     graphed and eager in turns (E G G E E G, 20 steps a turn, medians of
+     3), warm-up, capture and pool; 10b config 4 on SAH and LBVH trees:
+     BVH4 launches of one replay equal to one eager step's, the graphed
+     step's albedo gradient against brute force (1e-3) and a central
+     difference (0.05), two replays from the same state bit for bit; 10c
+     phase 6c's ``recover`` through the graphed step, one step more than
+     6c: one capture, 6c's 4 losses bit for bit
+     (else within 2e-3 relative), the tables the last replay packed and
+     the BVH4 hits on its first ray batch equal to a fresh pack of a fresh
+     refit, ms per step with the graphs' stages (CUDA events) and the
+     refit, peak memory and pool, the fifth backward's kernels by name
+     (the profiler); 10d (in phase 8's ranks) the sharded step at (2, 2),
+     grad_chunks 2, on 4 gloo ranks and at (1, 1) on one NCCL rank against
+     the same bodies run uncaptured: gradients and the parameters after 2
+     Adam steps bit for bit, ms per step per rank; 10e a host read planted
+     in the loss must make the capture raise, naming the stage.
 
 Phase 1 also builds both traversal kernels with the earlier 64-entry stack;
 phase 2b gates both kernels on a 1,700-triangle tree whose BVH4 walk needs
@@ -161,9 +185,10 @@ BVH4 overlay for both courtyards), the probe entry points of phase 5 and
 the training steps and ``recover`` runs of phase 6, the in-process
 command lines of phase 7 (7c and the CUDA half of 7d), and the sharded
 renders and training steps of the ranks of phases 8a and 8b (each rank
-counts its own launches and reports them), and the graphed renders of
-phase 9. A replayed graph adds the launches its capture recorded
-(``graphs.Unit``). Each is run with the launch counts set to 0 and read after; launches that
+counts its own launches and reports them), the graphed renders of phase
+9 and the graphed training steps of phase 10. A replayed graph adds the
+launches its capture recorded (``graphs.Unit``, ``graphs.TrainUnit``).
+Each is run with the launch counts set to 0 and read after; launches that
 compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
 object describing the kernels (with each one's least time on the card,
@@ -1045,11 +1070,12 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     """Phase 6c: recover() on the 242k courtyard at 3b's size (384x384, 8 spp,
     2 bounces, DIRECT, jitter 0.5; cut: samples_per_lane 1, rr_start_bounce
     8) for 4 Adam steps at lr 3e-2 on attrs, textures and positions,
-    refitting every step. Each stage is timed between synchronisations by
-    wrapping optim.value_and_grad (forward, then backward), the loss (the
-    forward), torch.optim.Adam.step, lbvh.refit and pack_tables_auto (the
-    repack inside the next forward). Then the gradient at the final state,
-    twice with deterministic algorithms and twice without, in turns.
+    refitting every step, on eager steps (:func:`_eager_train`). Each stage
+    is timed between synchronisations by wrapping optim.value_and_grad
+    (forward, then backward), the loss (the forward), torch.optim.Adam.step,
+    lbvh.refit_ and pack_tables_auto (the repack inside the next forward).
+    Then the gradient at the final state, twice with deterministic
+    algorithms and twice without, in turns.
 
     Losses are compared on the same samples (key 7, offset 0): the loss of
     each step draws new ones. The MSE of this scene is dominated by the
@@ -1078,8 +1104,10 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     loss_fn = optim.make_loss_fn(cam, opts, target)
     with torch.no_grad():
         loss_start = float(loss_fn(optim.extract_params(start, fields), start, key, 0))
-    optim.recover(start, cam, opts.replace(width=32, height=32), torch.zeros((32, 32, 3), device=dev),
-                  fields=fields, steps=1, learning_rate=3e-2, seed=7)  # warm-up, small
+    with _eager_train():
+        optim.recover(start, cam, opts.replace(width=32, height=32),
+                      torch.zeros((32, 32, 3), device=dev), fields=fields, steps=1,
+                      learning_rate=3e-2, seed=7)  # warm-up, small
     rec = collections.defaultdict(list)
 
     def timed(name, fn, *a, **k):
@@ -1090,7 +1118,7 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
         rec[name].append((time.perf_counter() - t0) * 1e3)
         return r
 
-    real_vg, real_refit, real_pack = optim.value_and_grad, lbvh.refit, pt.pack_tables_auto
+    real_vg, real_refit, real_pack = optim.value_and_grad, lbvh.refit_, pt.pack_tables_auto
     real_adam = torch.optim.Adam.step
 
     def vg(loss_fn, params, *args):
@@ -1110,8 +1138,8 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     base = torch.cuda.memory_allocated()
     pt.launches = pt.launches4 = 0
     t0 = time.perf_counter()
-    with mock.patch.object(optim, "value_and_grad", vg), \
-            mock.patch.object(lbvh, "refit", lambda *a: timed("refit", real_refit, *a)), \
+    with _eager_train(), mock.patch.object(optim, "value_and_grad", vg), \
+            mock.patch.object(lbvh, "refit_", lambda *a: timed("refit", real_refit, *a)), \
             mock.patch.object(pt, "pack_tables_auto", lambda *a: timed("pack", real_pack, *a)), \
             mock.patch.object(torch.optim.Adam, "step",
                               lambda self, closure=None: timed("adam", real_adam, self, closure)):
@@ -1615,23 +1643,22 @@ def _start_6c(torch, optim, scene):
     return optim.inject_params(scene, {"attrs": attrs, "textures": scene.textures.data * 0.5})
 
 
-def _refit(lbvh, scene, params):
-    """The scene with its tree refit to the step's positions, as recover() does."""
-    geom = dataclasses.replace(scene.geometry, positions=params["positions"].detach())
-    return dataclasses.replace(scene, bvh=lbvh.refit(scene.bvh, geom))
-
-
 def _train_2(torch, optim, lbvh, step, start, key):
     """Two steps of ``step`` from phase 6c's start with a host refit after
-    each; returns ([(loss, params, node_min, node_max, ms, peak GiB)] per step)."""
+    each, in place in a copy of the start's boxes, as recover() does (so a
+    graphed step captures once); returns ([(loss, params, node_min,
+    node_max, ms, peak GiB)] per step)."""
     state = optim.TrainState(optim.extract_params(start, FIELDS_6C), None, 0)
-    scene, out = start, []
+    scene = dataclasses.replace(start, bvh=dataclasses.replace(
+        start.bvh, node_min=start.bvh.node_min.clone(), node_max=start.bvh.node_max.clone()))
+    out = []
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, loss = step(state, scene, key)
-        scene = _refit(lbvh, scene, state.params)
+        lbvh.refit_(scene.bvh, dataclasses.replace(
+            scene.geometry, positions=state.params["positions"].detach()))
         torch.cuda.synchronize()
         out.append((float(loss), {k: v.detach().clone() for k, v in state.params.items()},
                     scene.bvh.node_min.clone(), scene.bvh.node_max.clone(),
@@ -1652,7 +1679,7 @@ def _rank_job(argv) -> None:
     import torch.distributed as dist
 
     import terra_tpu_torch as ttt
-    from terra_tpu_torch import optim
+    from terra_tpu_torch import graphs, optim
     from terra_tpu_torch.accel import lbvh
     from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.ops import rng
@@ -1701,30 +1728,47 @@ def _rank_job(argv) -> None:
         if rank == 0:
             np.save(os.path.join(args.out, f"film_{r}x{s}.npy"), acc.cpu().numpy())
             np.save(os.path.join(args.out, f"samples_{r}x{s}.npy"), samples.cpu().numpy())
-    if args.rank_job == "shard":
-        mesh = meshes[(2, 2)]
-        o6 = _opts_6c(ttt)
-        target = torch.load(os.path.join(args.out, "target_6c.pt"), map_location=dev)
-        start = _start_6c(torch, optim, scene)
-        key = rng.key_from_seed(7)
-        params = optim._trainable(optim.extract_params(start, FIELDS_6C))
-        pt.launches = pt.launches4 = 0
-        for chunks in (1, 2):
-            loss, grads = optim.make_grad_fn_sharded(cam, o6, target, mesh,
-                                                     grad_chunks=chunks)(params, start, key, 0)
-            if rank == 0:
-                torch.save({"loss": float(loss), **{k: g.cpu() for k, g in grads.items()}},
-                           os.path.join(args.out, f"grads_{chunks}.pt"))
-        step = optim.make_train_step_sharded(cam, o6, target,
-                                             functools.partial(torch.optim.Adam, lr=3e-2), mesh,
-                                             grad_chunks=2)
-        steps = _train_2(torch, optim, lbvh, step, start, key)
-        res["train"] = {"losses": [x[0] for x in steps], "ms": [x[4] for x in steps],
-                        "peak_gib": [x[5] for x in steps]}
-        res["train_launches"] = [pt.launches, pt.launches4]
-        torch.save([{**{k: v.cpu() for k, v in x[1].items()}, "node_min": x[2].cpu(),
-                     "node_max": x[3].cpu()} for x in steps],
-                   os.path.join(args.out, f"params_rank{rank}.pt"))
+    mesh = meshes[(2, 2)] if args.rank_job == "shard" else meshes[(1, 1)]
+    o6 = _opts_6c(ttt)
+    target = torch.load(os.path.join(args.out, "target_6c.pt"), map_location=dev)
+    start = _start_6c(torch, optim, scene)
+    key = rng.key_from_seed(7)
+    params = optim._trainable(optim.extract_params(start, FIELDS_6C))
+    pt.launches = pt.launches4 = 0
+    grads_by = {}
+    for chunks in ((1, 2) if args.rank_job == "shard" else (2,)):
+        grads_by[chunks] = optim.make_grad_fn_sharded(cam, o6, target, mesh, grad_chunks=chunks)(
+            params, start, key, 0)
+        if rank == 0 and args.rank_job == "shard":
+            loss, grads = grads_by[chunks]
+            torch.save({"loss": float(loss), **{k: g.cpu() for k, g in grads.items()}},
+                       os.path.join(args.out, f"grads_{chunks}.pt"))
+    step = optim.make_train_step_sharded(cam, o6, target,
+                                         functools.partial(torch.optim.Adam, lr=3e-2), mesh,
+                                         grad_chunks=2)
+    steps = _train_2(torch, optim, lbvh, step, start, key)
+    train_launches = [pt.launches, pt.launches4]
+    # 10d: the same bodies run uncaptured, op by op (launches not counted)
+    with _eager_units():
+        loss_e, grads_e = optim.make_grad_fn_sharded(cam, o6, target, mesh, grad_chunks=2)(
+            params, start, key, 0)
+        steps_e = _train_2(torch, optim, lbvh, optim.make_train_step_sharded(
+            cam, o6, target, functools.partial(torch.optim.Adam, lr=3e-2), mesh, grad_chunks=2),
+            start, key)
+    loss_g, grads_g = grads_by[2]
+    res["10d"] = {"grad_bits": [_same_bits(loss_g, loss_e)]
+                  + [_same_bits(grads_g[k], grads_e[k]) for k in sorted(grads_g)],
+                  "param_bits": [_same_bits(a[1][k], b[1][k]) for a, b in zip(steps, steps_e)
+                                 for k in FIELDS_6C],
+                  "losses": [x[0] for x in steps], "eager_losses": [x[0] for x in steps_e],
+                  "ms": [x[4] for x in steps], "eager_ms": [x[4] for x in steps_e],
+                  "units": graphs.units()}
+    res["train"] = {"losses": [x[0] for x in steps], "ms": [x[4] for x in steps],
+                    "peak_gib": [x[5] for x in steps]}
+    res["train_launches"] = train_launches
+    torch.save([{**{k: v.cpu() for k, v in x[1].items()}, "node_min": x[2].cpu(),
+                 "node_max": x[3].cpu()} for x in steps],
+               os.path.join(args.out, f"params_{args.rank_job}_rank{rank}.pt"))
     with open(os.path.join(args.out, f"{args.rank_job}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
@@ -1868,7 +1912,7 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
     rel = {k: _max_rel(g2[k].numpy(), g_ref[k].cpu().numpy()) for k in g_ref}
     rel12 = {k: _max_rel(g2[k].numpy(), g1[k].numpy()) for k in g_ref}
     loss_rel = abs(g2["loss"] - float(loss0)) / abs(float(loss0))
-    params = [torch.load(os.path.join(out, f"params_rank{i}.pt")) for i in range(4)]
+    params = [torch.load(os.path.join(out, f"params_shard_rank{i}.pt")) for i in range(4)]
     same = all(torch.equal(params[0][s][k], pr[s][k]) for pr in params[1:] for s in range(2)
                for k in params[0][s])
     losses = ranks[0]["train"]["losses"]
@@ -1911,6 +1955,22 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
           f"BVH4 launches per rank (gradients + steps) "
           f"{[rk['train_launches'][1] for rk in ranks]}; phase 8a-b {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    launches.update(binary=nccl["train_launches"][0], bvh4=nccl["train_launches"][1])
+    for label, rks in (("4 gloo ranks at mesh (2, 2)", ranks), ("1 NCCL rank at (1, 1)", [nccl])):
+        d = [rk["10d"] for rk in rks]
+        grad_ok = all(all(x["grad_bits"]) for x in d)
+        param_ok = all(all(x["param_bits"]) for x in d)
+        loss_ok = all(x["losses"] == x["eager_losses"] for x in d)
+        print(f"phase 10d: the sharded step on {label}, grad_chunks 2 (graphed; eager = the "
+              f"same bodies uncaptured): gradients bit-equal to the eager sharded step's "
+              f"{grad_ok}; after 2 Adam steps with a host refit, parameters bit-equal to "
+              f"eager's {param_ok}, losses equal {loss_ok}; ms/step per rank graphed "
+              f"{[[round(x, 1) for x in y['ms']] for y in d]} against eager "
+              f"{[[round(x, 1) for x in y['eager_ms']] for y in d]} (step 0 captures)",
+              flush=True)
+        ok &= grad_ok and param_ok and loss_ok
+        results[f"10d/{label}"] = {"ms": [x["ms"] for x in d],
+                                   "eager_ms": [x["eager_ms"] for x in d]}
     ok &= loss_rel <= 1e-5 and max(rel.values()) <= 1e-5 and max(rel12.values()) <= 1e-5
     ok &= same and step_rel[0] <= 1e-5 and max(own_rel) <= 1e-5
     if not ok:
@@ -2302,6 +2362,380 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
     return launches, results
 
 
+# --- phase 10: the training units as CUDA graphs -----------------------------
+
+def _eager_step(optim, cam, opts, target, optimizer=None, spp=None):
+    """``make_train_step``'s eager counterpart: ``optim.value_and_grad`` of
+    ``make_loss_fn``, then the optimiser's step, every op dispatched from
+    the host (the training path before training units)."""
+    from terra_tpu_torch.checkpoint import tree_leaves
+
+    spp = spp or opts.samples_per_pixel
+    loss_fn = optim.make_loss_fn(cam, opts, target, spp)
+
+    def step(state, scene, key):
+        params, opt = optim._start(state, optimizer)
+        loss, grads = optim.value_and_grad(loss_fn, params, scene, key, state.step * spp)
+        for p, g in zip(tree_leaves(params), grads):
+            p.grad = g
+        opt.step()
+        return optim.TrainState(params, opt, state.step + 1), loss
+
+    return step
+
+
+def _eager_train():
+    """``recover`` on eager steps: ``make_train_step`` replaced by
+    :func:`_eager_step` for the block."""
+    from terra_tpu_torch import optim
+
+    return mock.patch.object(optim, "make_train_step",
+                             lambda cam, opts, target, optimizer, spp=None:
+                             _eager_step(optim, cam, opts, target, optimizer, spp))
+
+
+def _eager_units():
+    """The sharded steps' bodies run on the card uncaptured, op by op, for
+    the block (``graphs.train_unit`` hands back the body)."""
+    from terra_tpu_torch import graphs
+
+    return mock.patch.object(graphs, "train_unit",
+                             lambda owners, key, make_body, moving=(), watch=(): make_body())
+
+
+def _turns(torch, fns: dict, states: dict, scene, key, n: int = 20) -> tuple:
+    """Steps in turns E G G E E G, ``n`` a turn: ms/step by CUDA events and
+    by the host clock ending in a synchronisation. Returns (event ms, host
+    ms, each a dict of lists by kind)."""
+    ev, host = collections.defaultdict(list), collections.defaultdict(list)
+    for kind in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        st = states[kind]
+        for _ in range(n):
+            st, _ = fns[kind](st, scene, key)
+        b.record()
+        torch.cuda.synchronize()
+        host[kind].append((time.perf_counter() - t0) / n * 1e3)
+        ev[kind].append(a.elapsed_time(b) / n)
+        states[kind] = st
+    return dict(ev), dict(host)
+
+
+def _phase10ab(torch, ttt, pt, dev):
+    """Phases 10a and 10b: config 4's graphed step. 10a, by brute force:
+    the first step's loss and gradient against ``value_and_grad`` at the
+    same state and offset (bit for bit), 20 more steps on each side with
+    the same Adam (parameters bit for bit, else max rel within 1e-6), and
+    ms/step graphed against eager in turns (E G G E E G, 20 steps a turn,
+    medians of 3). 10b, on SAH and LBVH trees: BVH4 launches of one replay
+    against one eager step's, the albedo gradient of the graphed step
+    against brute force (1e-3) and a central difference (0.05), and two
+    replays from the same parameters and offset bit for bit. Returns
+    (launches of the main path, results)."""
+    from terra_tpu_torch import graphs, optim
+
+    adam = functools.partial(torch.optim.Adam, lr=3e-2)
+    launches = collections.Counter()
+    failed = []
+    graphs.clear()
+    scene, cam, opts, target, key = _config4(torch, ttt, dev)
+    p0 = optim.extract_params(scene, ("attrs",))
+    step = optim.make_train_step(cam, opts, target, adam)
+    pt.launches = pt.launches4 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg, loss_g = step(optim.TrainState(p0, None, 0), scene, key)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches.update(binary=pt.launches, bvh4=pt.launches4)
+    grad_g = sg.params["attrs"].grad.clone()
+    loss_e, (grad_e,) = optim.value_and_grad(optim.make_loss_fn(cam, opts, target),
+                                             optim._trainable(p0), scene, key, 0)
+    bits1 = _same_bits(loss_g, loss_e) and _same_bits(grad_g, grad_e)
+    estep = _eager_step(optim, cam, opts, target, adam)
+    se, _ = estep(optim.TrainState(p0, None, 0), scene, key)
+    for _ in range(20):
+        sg, _ = step(sg, scene, key)
+        se, _ = estep(se, scene, key)
+    pg, pe = sg.params["attrs"].detach(), se.params["attrs"].detach()
+    bits20 = _same_bits(pg, pe)
+    rel20 = float((pg - pe).abs().max() / pe.abs().max())
+    ev, host = _turns(torch, {"eager": estep, "graph": step}, {"eager": se, "graph": sg}, scene,
+                      key)
+    unit = graphs.units()[-1]
+    med = {k: float(np.median(v)) for k, v in ev.items()}
+    med_host = {k: float(np.median(v)) for k, v in host.items()}
+    print(f"phase 10a: config 4 (brute force, 32x32x8spp, Adam 3e-2 on attrs) graphed step: "
+          f"first step's loss and gradient bit-equal to value_and_grad {bits1}; after 21 steps "
+          f"each the parameters bit-equal to the eager step's {bits20} (max rel {rel20:.3e}, "
+          f"gate 1e-6); {med['graph']:.3f} ms/step graphed against {med['eager']:.3f} eager "
+          f"(CUDA events, medians of 3 turns of 20: graph {[round(x, 3) for x in ev['graph']]}, "
+          f"eager {[round(x, 3) for x in ev['eager']]}), eager / graph "
+          f"{med['eager'] / med['graph']:.2f}; host clock {med_host['graph']:.3f} against "
+          f"{med_host['eager']:.3f} ms/step; first step {first_s:.3f} s (warm-up "
+          f"{unit['warmup_s']:.3f} s, capture {unit['capture_s']:.3f} s); pool "
+          f"{unit['pool_bytes'] / 2**20:.1f} MiB; replays {unit['replays']}; stages "
+          f"{list(unit['launches'])}", flush=True)
+    if not bits1 or not (bits20 or rel20 <= 1e-6):
+        failed.append("10a bits")
+    out = {"10a": {"graph_ms": med["graph"], "eager_ms": med["eager"], "turns": ev,
+                   "host_ms": med_host, "first_s": first_s, "warmup_s": unit["warmup_s"],
+                   "capture_s": unit["capture_s"], "pool_bytes": unit["pool_bytes"],
+                   "bits_first": bits1, "bits_20": bits20, "rel_20": rel20}}
+    _, (g_brute,) = _grad(torch, optim, scene, cam, opts, target, key)
+    for builder in ("sah", "lbvh"):
+        bscene, bcam, bopts, btarget, bkey = _config4(torch, ttt, dev, ttt.Accelerator.BVH,
+                                                      builder)
+        bp0 = optim.extract_params(bscene, ("attrs",))
+        bstep = optim.make_train_step(bcam, bopts, btarget, adam)
+        pt.launches = pt.launches4 = 0
+        st, _ = bstep(optim.TrainState(bp0, None, 0), bscene, bkey)  # warm-up, capture, replay
+        torch.cuda.synchronize()
+        launches.update(binary=pt.launches, bvh4=pt.launches4)
+        g1 = st.params["attrs"].grad.clone()
+        ga, gb = g1[0, 0].double(), g_brute[0, 0].double()
+        rel = float((ga - gb).abs().max() / gb.abs().max())
+        pt.launches = pt.launches4 = 0
+        st, _ = bstep(st, bscene, bkey)  # a replay
+        torch.cuda.synchronize()
+        l_replay = (pt.launches, pt.launches4)
+        launches.update(binary=pt.launches, bvh4=pt.launches4)
+        pt.launches = pt.launches4 = 0
+        optim.value_and_grad(optim.make_loss_fn(bcam, bopts, btarget),
+                             optim._trainable(bp0), bscene, bkey, 8)
+        torch.cuda.synchronize()
+        l_eager = (pt.launches, pt.launches4)
+        # a replay from the first step's parameters and offset again
+        with torch.no_grad():
+            st.params["attrs"].copy_(bp0["attrs"])
+        pt.launches = pt.launches4 = 0
+        st, _ = bstep(optim.TrainState(st.params, st.opt_state, 0), bscene, bkey)
+        launches.update(binary=pt.launches, bvh4=pt.launches4)
+        replay_bits = _same_bits(st.params["attrs"].grad, g1)
+
+        def f(x):
+            attrs = bscene.materials.attrs.clone()
+            attrs[0, 0, :] = x
+            with torch.no_grad():
+                img = optim.render_mean_image(optim.inject_params(bscene, {"attrs": attrs}),
+                                              bcam, bopts, bkey, 0, 8)
+            return float(torch.mean((img - 0.5 * btarget) ** 2))
+
+        attrs = bscene.materials.attrs.clone()
+        attrs[0, 0, :] = 0.73
+        pt.launches = pt.launches4 = 0
+        fst, _ = optim.make_train_step(bcam, bopts, 0.5 * btarget, adam)(
+            optim.TrainState({"attrs": attrs}, None, 0), bscene, bkey)
+        torch.cuda.synchronize()
+        launches.update(binary=pt.launches, bvh4=pt.launches4)
+        g = float(fst.params["attrs"].grad[0, 0].sum())
+        fd = (f(0.73 + 1e-2) - f(0.73 - 1e-2)) / 2e-2
+        fd_rel = abs(g - fd) / max(abs(fd), 1e-3)
+        print(f"phase 10b: config 4 on a BVH scene ({builder}): launches of one replay "
+              f"(binary, bvh4) {l_replay}, of one eager value_and_grad {l_eager}; albedo "
+              f"gradient of the graphed step {ga.cpu().numpy()} vs brute force "
+              f"{gb.cpu().numpy()}: max rel {rel:.3e} (gate 1e-3); d loss / d albedo {g:.6e} vs "
+              f"central difference {fd:.6e}: rel {fd_rel:.3e} (gate 0.05); two replays from "
+              f"the same parameters and offset give the same gradient bits {replay_bits}",
+              flush=True)
+        if l_replay != l_eager or l_replay[1] <= 0 or rel > 1e-3 or fd_rel > 0.05 or \
+                not replay_bits:
+            failed.append(f"10b {builder}")
+        out[f"10b/{builder}"] = {"launches_replay": l_replay, "launches_eager": l_eager,
+                                 "rel_vs_brute": rel, "fd_rel": fd_rel,
+                                 "replay_bits": replay_bits}
+    graphs.clear()
+    if failed:
+        raise AssertionError(f"phase 10a/10b failed: {failed}")
+    return launches, out
+
+
+def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
+    """Phase 10c: phase 6c's ``recover`` (the courtyard at 3b's size, Adam
+    steps at 3e-2 on attrs, textures and positions, a host refit each
+    step) through the graphed step, for 5 steps: 6c's 4 and one whose
+    backward replays under the profiler. Gates: one capture over the run;
+    the first 4 losses bit-equal to 6c's eager run step by step (else the
+    first differing step and max rel, within the twin budget 2e-3); the tables
+    the last replay packed, and the BVH4 kernel's hits on its first batch
+    of rays (kept from the capture: their memory stays theirs, so they hold
+    the last replay's values), equal to tables freshly packed from a
+    fresh refit to the positions of the step before and the kernel's hits
+    on them. Timing: ms/step (host clock ending in a synchronisation), the
+    graphs' stages by CUDA events, the refit; peak memory, pool bytes.
+    Returns (launches of the main path, results)."""
+    from terra_tpu_torch import graphs, optim
+    from terra_tpu_torch.accel import lbvh
+    from terra_tpu_torch.ops import rng
+
+    opts = _opts_6c(ttt).replace(width=side, height=side)
+    with torch.no_grad():
+        target = optim.render_mean_image(scene, cam, opts, rng.key_from_seed(7), 0, 8)
+    start = _start_6c(torch, optim, scene)
+    graphs.clear()
+    captures, seen, refits, stage_ev, step_ms, refit_ms, profiled = [], {}, [], [], [], [], []
+    real_init, real_replay = graphs.TrainUnit.__init__, graphs.TrainUnit.replay
+    real_tp, real_refit, real_mts = pt.traverse_packed, lbvh.refit_, optim.make_train_step
+
+    def init(self, body, device):
+        real_init(self, body, device)
+        captures.append(self)  # its numbers outlive the run's optimiser
+
+    def replay(self, stage):
+        if stage == "backward" and sum(e[0] == stage for e in stage_ev) == 4:
+            # the fifth step's backward under the profiler, outside the timings
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = real_replay(self, stage)
+                torch.cuda.synchronize()
+            profiled.extend(sorted(
+                ((_short(e.key), e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages() if e.self_device_time_total > 0),
+                key=lambda r: -r[1]))
+            return out
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_replay(self, stage)
+        b.record()
+        stage_ev.append((stage, a, b))
+        return out
+
+    def spy(tables, o, d, t_max=None, any_hit=False, algo="mt", count_steps=False, start=None):
+        out = real_tp(tables, o, d, t_max, any_hit, algo, count_steps, start)
+        if not seen and torch.cuda.is_current_stream_capturing():
+            seen.update(tables=tables, o=o, d=d, t_max=t_max, any_hit=any_hit, algo=algo,
+                        out=out)
+        return out
+
+    def refit_(bvh, geometry):
+        refits.append(geometry.positions.detach().clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real_refit(bvh, geometry)
+        torch.cuda.synchronize()
+        refit_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    def make_train_step(*a, **k):
+        step = real_mts(*a, **k)
+
+        def timed(*sa):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step(*sa)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        return timed
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pt.launches = pt.launches4 = 0
+    with mock.patch.object(graphs.TrainUnit, "__init__", init), \
+            mock.patch.object(graphs.TrainUnit, "replay", replay), \
+            mock.patch.object(pt, "traverse_packed", spy), \
+            mock.patch.object(lbvh, "refit_", refit_), \
+            mock.patch.object(optim, "make_train_step", make_train_step):
+        recovered, losses = optim.recover(start, cam, opts, target, fields=FIELDS_6C, steps=5,
+                                          learning_rate=3e-2, seed=7)
+        torch.cuda.synchronize()
+    unit = captures[0].describe()
+    step_ms, refit_ms = step_ms[:4], refit_ms[:4]
+    launches = {"binary": pt.launches, "bvh4": pt.launches4}
+    peak = torch.cuda.max_memory_allocated()
+    by_step = collections.defaultdict(list)
+    for stage, a, b in stage_ev:
+        by_step[stage].append(a.elapsed_time(b))
+    per_stage = {k: float(np.mean(v)) for k, v in by_step.items()}
+    # the last forward read the positions and boxes of the refit after step 4
+    geom = dataclasses.replace(start.geometry, positions=refits[3])
+    fresh = pt.pack_tables_auto(lbvh.refit(start.bvh, geom),
+                                *[c.detach() for c in geom.corners()])
+    tables_equal = all(
+        (torch.equal(getattr(seen["tables"], f.name), getattr(fresh, f.name))
+         if isinstance(getattr(fresh, f.name), torch.Tensor)
+         else getattr(seen["tables"], f.name) == getattr(fresh, f.name))
+        for f in dataclasses.fields(fresh))
+    t_new, i_new = real_tp(fresh, seen["o"], seen["d"], seen["t_max"], seen["any_hit"],
+                           seen["algo"])
+    hits_equal = _same_bits(t_new, seen["out"][0]) and torch.equal(i_new, seen["out"][1])
+    moved = not torch.equal(fresh.slots, pt.pack_tables_auto(
+        start.bvh, *[c.detach() for c in start.geometry.corners()]).slots)
+    same_steps = [a == b for a, b in zip(losses[:4], eager["losses"])]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:4], eager["losses"]))
+    first_diff = same_steps.index(False) if not all(same_steps) else None
+    print(f"phase 10c: recover on the courtyard through the graphed step ({side}x{side}x8spp, "
+          f"fields {FIELDS_6C}, 5 Adam steps, host refit): captures {len(captures)} "
+          f"({[u.label for u in captures]}); losses {[f'{x:.6e}' for x in losses]}, the first 4 "
+          f"bit-equal to 6c's eager run step by step {same_steps} (first differing step "
+          f"{first_diff}, max rel {rel:.3e}); "
+          f"the last replay's tables equal a fresh pack of a fresh refit {tables_equal}; BVH4 "
+          f"hits on its first batch ({seen['o'].shape[0]} rays) equal the fresh tables' "
+          f"{hits_equal}; those tables differ from the start's {moved}", flush=True)
+    print(f"  ms/step (host clock) {[round(x, 1) for x in step_ms]} (step 0 warms up and "
+          f"captures: warm-up {unit['warmup_s']:.3f} s, capture {unit['capture_s']:.3f} s); "
+          f"inside the graphs per step (CUDA events, mean over the replays timed) "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in per_stage.items())
+          + f"; refit {[round(x, 1) for x in refit_ms]} ms; 6c's eager step "
+          f"{eager['ms_per_step']:.1f} ms (forward {np.mean(eager['forward_ms']):.1f}, "
+          f"backward {np.mean(eager['backward_ms']):.1f}, Adam {np.mean(eager['adam_ms']):.2f} ms "
+          f"a step); peak memory {peak / 2**30:.2f} GiB beside a pool of "
+          f"{unit['pool_bytes'] / 2**30:.2f} GiB (6c eager peak {eager['peak_gib']:.2f} GiB); "
+          f"launches binary {launches['binary']} bvh4 {launches['bvh4']}; stage launches "
+          f"{unit['launches']}", flush=True)
+    busy = sum(r[1] for r in profiled)
+    print(f"  the fifth step's backward under the profiler: {sum(r[2] for r in profiled)} "
+          f"kernels, {busy:.1f} ms of kernel time; by name:", flush=True)
+    for name, ms, count in profiled[:12]:
+        print(f"    {ms:8.2f} ms  x{count:<6d} {name[:120]}", flush=True)
+    ok = len(captures) == 1 and tables_equal and hits_equal and moved and \
+        (all(same_steps) or rel <= 2e-3) and all(np.isfinite(losses))
+    if not ok:
+        raise AssertionError("phase 10c failed a gate")
+    captures.clear()
+    graphs.clear()
+    return launches, {"losses": losses, "bit_equal_steps": same_steps, "max_rel": rel,
+                      "step_ms": step_ms, "stage_ms": dict(per_stage),
+                      "stage_ms_by_step": dict(by_step), "refit_ms": refit_ms,
+                      "peak_gib": peak / 2**30, "pool_bytes": unit["pool_bytes"],
+                      "warmup_s": unit["warmup_s"], "capture_s": unit["capture_s"],
+                      "backward_kernels": profiled[:12]}
+
+
+def _phase10e(torch, ttt, dev):
+    """Phase 10e: a host read planted in the loss (``float`` of the forward
+    stage's output) must make the capture of config 4's step raise, naming
+    the stage; no unit is kept and nothing falls back."""
+    from terra_tpu_torch import graphs, optim
+
+    scene, cam, opts, target, key = _config4(torch, ttt, dev)
+    real = optim._StepBody._run
+
+    def reading(self, stage):
+        out = real(self, stage)
+        if stage == "forward":
+            float(out)
+        return out
+
+    graphs.clear()
+    with mock.patch.object(optim._StepBody, "_run", reading):
+        try:
+            optim.make_train_step(cam, opts, target, functools.partial(torch.optim.Adam, lr=3e-2))(
+                optim.TrainState(optim.extract_params(scene, ("attrs",)), None, 0), scene, key)
+            raised = "nothing"
+        except RuntimeError as e:
+            raised = str(e).splitlines()[0][:200]
+    print(f"phase 10e: config 4's step with a host read in the loss: raised: {raised}; units "
+          f"kept {len(graphs.units())}", flush=True)
+    if "synchroniz" not in raised or "'forward'" not in raised or graphs.units():
+        raise AssertionError("a host read in the loss did not make the capture raise")
+    return raised
+
+
 TWIN_TABLES = {
     "binary": lambda pt: pt.pack_tables,
     "f32": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="f32"),
@@ -2588,6 +3022,18 @@ def main() -> None:
                                             ("sky", sky, cam, s_opts)], cli_passes)
     main_launches.update(launches9)
 
+    # 10. the training units as CUDA graphs: config 4's graphed step against
+    # eager (10a, 10b), the courtyard recover (10c), a planted host read
+    # (10e); the sharded step (10d) ran in phase 8's ranks
+    t10 = time.perf_counter()
+    launches10, train10 = _phase10ab(torch, ttt, pt, dev)
+    main_launches.update(launches10)
+    launches10c, train10["10c"] = _phase10c(torch, ttt, pt, scene, cam, inverse["6c"])
+    main_launches.update(launches10c)
+    _phase10e(torch, ttt, dev)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s; every capture's warm-up ran under "
+          f"torch.cuda.set_sync_debug_mode('error') and deterministic algorithms", flush=True)
+
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
     if main_launches["binary"] <= 0 or main_launches["bvh4"] <= 0 or \
@@ -2624,6 +3070,8 @@ def main() -> None:
          "ms": m4["ms"], "plain_ms": m4["plain_ms"], "bound_ms": m4["bound_ms"],
          "bound_by": m4["bound_by"],
          "library_ms": None, "library": walks, **main_path("bvh4_traverse"),
+         "train_replay_launches": {b: train10[f"10b/{b}"]["launches_replay"][1]
+                                   for b in ("sah", "lbvh")},
          "modes": {f"{label}/{mode}": v for label, g in gate4.items() for mode, v in g.items()}},
     ]
     for name, row in probe_rows.items():

@@ -23,7 +23,7 @@ import torch
 
 from .. import native
 
-__all__ = ["LBVH", "build", "refit", "DEFAULT_LEAF_SIZE"]
+__all__ = ["LBVH", "build", "refit", "refit_", "DEFAULT_LEAF_SIZE"]
 
 # Leaves hold [4, 8] triangles (the SAH builder pads a leaf of n >= L/2
 # triangles to L by repetition). One thread tests a whole leaf, so small
@@ -340,14 +340,23 @@ def _refit_host(pos, vidx, leaf_tri, left, right):
     return box_min, box_max
 
 
-def refit(bvh: LBVH, geometry) -> LBVH:
-    """The tree with its boxes recomputed for ``geometry``'s (moved)
-    vertices on the same topology, on the host; the BVH4 overlay gathers
-    its child boxes from these at pack time, so it stays valid."""
+def refit_(bvh: LBVH, geometry) -> LBVH:
+    """:func:`refit` in place: the recomputed boxes are copied into
+    ``bvh.node_min`` and ``node_max``, so tables packed from them inside a
+    captured graph see the moved triangles on its next replay. Returns
+    ``bvh``."""
     pos, vidx = _host(geometry)
     node_min, node_max = _refit_host(
         pos, vidx, bvh.leaf_tri.cpu().numpy(), bvh.node_left.cpu().numpy(),
         bvh.node_right.cpu().numpy())
-    dev = bvh.node_min.device
-    return dataclasses.replace(bvh, node_min=torch.as_tensor(node_min, device=dev),
-                               node_max=torch.as_tensor(node_max, device=dev))
+    bvh.node_min.copy_(torch.as_tensor(node_min))
+    bvh.node_max.copy_(torch.as_tensor(node_max))
+    return bvh
+
+
+def refit(bvh: LBVH, geometry) -> LBVH:
+    """The tree with its boxes recomputed for ``geometry``'s (moved)
+    vertices on the same topology, on the host; the BVH4 overlay gathers
+    its child boxes from these at pack time, so it stays valid."""
+    return refit_(dataclasses.replace(bvh, node_min=bvh.node_min.clone(),
+                                      node_max=bvh.node_max.clone()), geometry)

@@ -22,6 +22,11 @@ kernels and refuses any op that synchronises with the host. A failed
 capture or replay raises, naming the stage; nothing falls back to eager
 rendering. ``render.render_rows`` stays the eager body, by name.
 
+Training units (:class:`TrainUnit`) serve ``optim``'s steps the same
+way: the forward (autograd recorded inside the capture), the backward
+and the optimiser's update, one graph each in one pool, replayed in
+capture order; the sharded steps' all-reduces run between replays.
+
 The traversal wrappers count launches when they enqueue a kernel, so a
 replay would count nothing. A unit records each graph's captured launches,
 takes them back out of the counters (the capture launched nothing), and
@@ -47,33 +52,42 @@ import torch
 
 from .accel import pallas_traverse
 
-__all__ = ["Unit", "WeakCache", "fingerprint", "drive", "unit", "units", "clear", "CONTEXTS",
-           "MAX_UNITS"]
+__all__ = ["Unit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit", "train_unit",
+           "units", "clear", "CONTEXTS", "MAX_UNITS", "MAX_TRAIN_UNITS"]
 
 # Live captured units; the least recently used one goes first. A unit's
 # pool holds about one eager call's peak memory (up to ~2 GB at the
 # render's MAX_WAVEFRONT_LANES).
 MAX_UNITS = 8
+# Live training units: a pool holds every chunk's saved forward and the
+# backward's temporaries, several GB at a 1M-lane wavefront.
+MAX_TRAIN_UNITS = 2
 
 
-def _leaves(obj, out: list) -> list:
+def _leaves(obj, out: list, moving) -> list:
     """Every leaf of ``obj`` reachable through dataclass fields, dicts,
     lists and tuples: tensors as (id, data pointer, version, shape, dtype,
-    device); other values as themselves, or by id when unhashable."""
+    device), without the version for a tensor whose id is in ``moving``
+    (for every tensor when ``moving`` is None);
+    other values as themselves, or by id when unhashable or hashed by
+    identity (so the fingerprint holds no object alive)."""
     if isinstance(obj, torch.Tensor):
-        out.append(("t", id(obj), obj.data_ptr(), obj._version, tuple(obj.shape), obj.dtype,
+        version = None if moving is None or id(obj) in moving else obj._version
+        out.append(("t", id(obj), obj.data_ptr(), version, tuple(obj.shape), obj.dtype,
                     obj.device))
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
-            _leaves(getattr(obj, f.name), out)
+            _leaves(getattr(obj, f.name), out, moving)
     elif isinstance(obj, dict):
         for k, v in obj.items():
             out.append(k)
-            _leaves(v, out)
+            _leaves(v, out, moving)
     elif isinstance(obj, (list, tuple)):
         out.append(len(obj))
         for v in obj:
-            _leaves(v, out)
+            _leaves(v, out, moving)
+    elif type(obj).__hash__ is object.__hash__:  # hashed by identity: not held
+        out.append(("id", id(obj)))
     else:
         try:
             hash(obj)
@@ -83,10 +97,15 @@ def _leaves(obj, out: list) -> list:
     return out
 
 
-def fingerprint(*objs) -> tuple:
+def fingerprint(*objs, moving=()) -> tuple:
     """What a captured graph baked in of ``objs``: changes when any tensor
-    in them is replaced or written in place, or any plain field changes."""
-    return tuple(_leaves(list(objs), []))
+    in them is replaced or written in place, or any plain field changes.
+    The tensors in ``moving`` (every tensor when it is None) are inputs the
+    graph reads as they stand at each replay: replacing one changes the
+    fingerprint, writing it in place does not."""
+    if moving is not None:
+        moving = frozenset(id(t) for t in moving)
+    return tuple(_leaves(list(objs), [], moving))
 
 
 class WeakCache:
@@ -99,9 +118,14 @@ class WeakCache:
         self.max_entries = max_entries
         self._entries: OrderedDict = OrderedDict()
 
-    def get(self, owners: tuple, key, make: Callable):
+    def get(self, owners: tuple, key, make: Callable, moving=(), watch=()):
+        """The value of (owners, key). ``moving``: tensors of the owners
+        fingerprinted without their version (see :func:`fingerprint`);
+        ``watch``: objects fingerprinted beside the owners, not held, every
+        tensor in them by identity alone (an optimiser's groups, whose
+        parameters it writes in place)."""
         k = (tuple(id(o) for o in owners), key)
-        fp = fingerprint(*owners)
+        fp = fingerprint(*owners, moving=moving) + fingerprint(watch, moving=None)
         hit = self._entries.get(k)
         if hit is not None and all(r() is o for r, o in zip(hit[0], owners)) and hit[1] == fp:
             self._entries.move_to_end(k)
@@ -221,6 +245,81 @@ class Unit:
                     trips_per_step=self.trips_per_step, max_steps=self.steps)
 
 
+class TrainUnit:
+    """A training step's stages captured from ``body`` (``optim``'s step
+    bodies) in order into one memory pool, and replayed in that order.
+
+    The body names its stages (``body.stages``: the forward, recorded by
+    autograd inside the capture; the backward, ``torch.autograd.grad``
+    from the forward's saved tensors, which the shared pool keeps; for a
+    step, the optimiser's update) and runs one with ``body.run(stage)``,
+    returning its static output. Before capture every stage runs once
+    eagerly on a side stream under ``set_sync_debug_mode("error")``; that
+    warm-up steps the optimiser, so ``body.save()`` before it and
+    ``body.restore(saved)`` after it put the parameters and the optimiser
+    state back. A stage that fails to warm up or to capture raises, naming
+    it; nothing falls back to eager dispatch. Collectives run between
+    replays, never inside a graph."""
+
+    def __init__(self, body, device):
+        device = torch.device(device)
+        self.label, self.inputs, self.stages = body.label, body.inputs, tuple(body.stages)
+        t0 = time.perf_counter()
+        saved = body.save()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(side), _sync_debug_error():
+                for s in self.stages:
+                    try:
+                        body.run(s)
+                    except RuntimeError as e:
+                        raise RuntimeError(
+                            f"warming up stage {s!r} of {self.label} failed: {e}") from e
+        finally:
+            torch.cuda.current_stream(device).wait_stream(side)
+            body.restore(saved)
+            torch.cuda.synchronize(device)
+        self.warmup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # as in Unit: the reserved bytes added are the pool's
+        reserved = torch.cuda.memory_reserved(device)
+        pool = torch.cuda.graph_pool_handle()
+        self._graphs = {}
+        for s in self.stages:
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
+                    out = body.run(s)
+            except RuntimeError as e:
+                raise RuntimeError(f"capturing stage {s!r} of {self.label} failed: {e}") from e
+            self._graphs[s] = (graph, tuple(counts), out)
+        self.capture_s = time.perf_counter() - t0 - self.warmup_s
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        # what the graphs read that no owner keeps alive (buffers, target,
+        # parameters, the leaf table); the body itself holds the owners
+        self._keep = body.keep
+        self.cot = body.cot
+        self.replays = 0
+
+    def replay(self, stage: str):
+        """Replay one stage; returns its static output (overwritten by the
+        next replay of the stage)."""
+        graph, (n2, n4), out = self._graphs[stage]
+        graph.replay()
+        pallas_traverse.launches += n2
+        pallas_traverse.launches4 += n4
+        if stage == self.stages[0]:
+            self.replays += 1
+        return out
+
+    def describe(self) -> dict:
+        """The unit's numbers; ``launches`` maps each stage to the (binary,
+        bvh4) kernel launches one replay of it makes."""
+        return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
+                    pool_bytes=self.pool_bytes, replays=self.replays,
+                    launches={s: c for s, (_, c, _) in self._graphs.items()})
+
+
 def drive(body) -> tuple:
     """Run a unit or an eager body: ``start``, then ``step`` until the
     all-finished flag is set (read once per block) or ``steps`` blocks ran,
@@ -236,6 +335,7 @@ def drive(body) -> tuple:
 
 
 _UNITS = WeakCache(MAX_UNITS)
+_TRAIN_UNITS = WeakCache(MAX_TRAIN_UNITS)
 CONTEXTS = WeakCache(8)
 
 
@@ -250,9 +350,27 @@ def unit(owners: tuple, key, make_body: Callable) -> Unit:
     return _UNITS.get(owners, key, capture)
 
 
+def train_unit(owners: tuple, key, make_body: Callable, moving=(), watch=()):
+    """The training unit of ``key`` for ``owners`` (held weakly: the scene,
+    the camera, the optimiser), made from ``make_body()`` on a miss: a
+    captured :class:`TrainUnit` on a CUDA device, the body itself (run
+    eagerly, ``replay`` = ``run``; it holds its owners until evicted) on
+    the CPU. ``watch`` and ``moving`` as for :meth:`WeakCache.get`: the
+    optimiser's parameters (watched) and the tree boxes a refit writes in
+    place (moving) are inputs the graphs read at each replay, and writing
+    them does not force a new capture."""
+    def make():
+        body = make_body()
+        return TrainUnit(body, body.inputs.device) if body.inputs.is_cuda else body
+
+    return _TRAIN_UNITS.get(owners, key, make, moving=moving, watch=watch)
+
+
 def units() -> list:
-    """``describe()`` of every live unit, least recently used first."""
-    return [u.describe() for u in _UNITS.values()]
+    """``describe()`` of every live captured unit (render units, then
+    training units), least recently used first."""
+    return [u.describe() for u in _UNITS.values()] + \
+        [u.describe() for u in _TRAIN_UNITS.values() if isinstance(u, TrainUnit)]
 
 
 def clear() -> None:
@@ -260,4 +378,5 @@ def clear() -> None:
     that swaps a traversal function or the table packer under a live
     scene calls this)."""
     _UNITS.clear()
+    _TRAIN_UNITS.clear()
     CONTEXTS.clear()

@@ -83,11 +83,13 @@ def adam_state_from_numpy(state: dict, params: dict, lr: float):
     holding optax's ``ScaleByAdamState`` given as ``{"count", "mu", "nu"}``
     (``mu``/``nu`` trees of ``params``' structure, NumPy). optax's moments
     are torch's ``exp_avg``/``exp_avg_sq`` and its count is torch's step;
-    both apply the same bias-corrected update."""
+    both apply the same bias-corrected update. On CUDA parameters the
+    optimiser is ``capturable`` (its step counter on the parameters'
+    device), so the captured training step of ``optim`` replays it."""
     leaves = tree_leaves(params)
-    opt = torch.optim.Adam(leaves, lr=lr)
+    opt = torch.optim.Adam(leaves, lr=lr, capturable=any(p.is_cuda for p in leaves))
     step = float(np.asarray(state["count"]))
     for p, mu, nu in zip(leaves, tree_leaves(state["mu"]), tree_leaves(state["nu"])):
-        opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+        opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32, device=p.device),
                         "exp_avg": _t(mu, p.device), "exp_avg_sq": _t(nu, p.device)}
     return opt

@@ -12,9 +12,12 @@ from dataclasses import dataclass
 
 import torch
 
+from .ops import math3
+
 __all__ = [
-    "RayHit", "mask_dead_rays", "mt_components", "watertight_components",
-    "raycast_brute", "RAY_OFFSET_DIR", "SURFACE_OFFSET_NORMAL", "T_FAR", "MISS_ORIGIN",
+    "RayHit", "mask_dead_rays", "ray_aabb", "moller_trumbore", "mt_components",
+    "watertight_components", "raycast_brute", "RAY_OFFSET_DIR", "SURFACE_OFFSET_NORMAL", "T_FAR",
+    "MISS_ORIGIN",
 ]
 
 RAY_OFFSET_DIR = 1e-3        # origin nudge along the direction
@@ -41,6 +44,36 @@ def mask_dead_rays(active, o, d):
     # (1, 0, 0) made on the device: no host copy inside a captured graph
     d_q = torch.where(live, d, torch.eye(1, 3, dtype=o.dtype, device=o.device))
     return o_q, d_q
+
+
+def ray_aabb(o, inv_d, box_min, box_max):
+    """Branchless slab test; all arguments broadcastable (..., 3). Returns
+    (hit, tmin, tmax). ``>=`` keeps perfectly flat boxes (tmin == tmax for
+    every ray through them), as the reference does."""
+    t1 = (box_min - o) * inv_d
+    t2 = (box_max - o) * inv_d
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return tmax >= torch.clamp(tmin, min=0.0), tmin, tmax
+
+
+def moller_trumbore(o, d, a, b, c, eps: float = 1e-4):
+    """Moller-Trumbore on (..., 3) rays against broadcastable (..., 3)
+    triangles. Returns (valid, t, u, v): ``valid`` needs |det| > eps, the
+    barycentrics inside and t > eps (no self-hit at the origin)."""
+    e1 = b - a
+    e2 = c - a
+    h = math3.cross(d, e2)
+    det = math3.dot(e1, h)
+    valid = torch.abs(det) > eps
+    f = torch.where(valid, torch.reciprocal(torch.where(valid, det, 1.0)), 0.0)
+    s = o - a
+    u = f * math3.dot(s, h)
+    q = math3.cross(s, e1)
+    v = f * math3.dot(d, q)
+    t = f * math3.dot(e2, q)
+    valid = valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
+    return valid, t, u, v
 
 
 def mt_components(oc, dc, ac, bc, cc, eps: float = 1e-4):
@@ -129,16 +162,19 @@ def leaf_test(algo: str):
     raise ValueError(f"unknown intersector {algo!r}")
 
 
-def raycast_brute(o, d, tri_a, tri_b, tri_c, tri_block: int = 1024, algo: str = "mt",
-                  max_pairs: int = 1 << 24) -> RayHit:
+def raycast_brute(o, d, tri_a, tri_b, tri_c, ray_chunk: int = 0, tri_block: int = 1024,
+                  algo: str = "mt", max_pairs: int = 1 << 24) -> RayHit:
     """Closest hit over all triangles by a dense (rays x triangle-block)
-    sweep, with rays chunked so one block holds at most ``max_pairs``
-    ray-triangle pairs. Equal t within a block goes to the lowest id."""
+    sweep in chunks of ``ray_chunk`` rays (0: as many as keep one block at
+    most ``max_pairs`` ray-triangle pairs). Equal t within a block goes to
+    the lowest id; no result depends on the chunking."""
     isect = leaf_test(algo)
     n = o.shape[0]
     t_count = tri_a.shape[0]
     tri_block = max(min(tri_block, t_count), 1)
-    ray_chunk = max(min(n, max_pairs // tri_block), 1)
+    if ray_chunk <= 0:
+        ray_chunk = max_pairs // tri_block
+    ray_chunk = max(min(n, ray_chunk), 1)
     best_t = torch.full((n,), T_FAR, dtype=torch.float32, device=o.device)
     best_i = torch.zeros((n,), dtype=torch.int32, device=o.device)
     with torch.no_grad():

@@ -18,7 +18,9 @@ traced. Here each is a CUDA graph on a CUDA scene, captured once per
 (:class:`_BandBody`) runs eagerly. :func:`render` goes through them in the
 reference's order. :func:`render_rows` is the eager body by name: every
 op dispatched from the host, the persistent loop's flag read every trip
-(the A/B baseline, and the body autograd records through).
+(the A/B baseline, and the body the eager gradient records through).
+:class:`_GradBody` is the training units' capture-safe differentiable
+forward (``optim.py``).
 
 Gradients: :func:`trace` records autograd when its caller has it on, so a
 loss on its radiance reaches the scene's positions, attributes, emission,
@@ -60,7 +62,7 @@ MAX_WAVEFRONT_LANES = 1 << 21
 trips = 0
 
 
-def make_raycast_fn(scene: Scene, opts: RenderOptions):
+def make_raycast_fn(scene: Scene, opts: RenderOptions, leaf_of=None):
     """Raycast closure: nudges the origin by dir * RAY_OFFSET_DIR and
     traces through the BVH (``Accelerator.BVH`` on a scene committed with
     one; the tables of the kind ``pallas_traverse.wide_mode`` picks, packed
@@ -68,14 +70,16 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
     occlusion query of NEE shadow rays: ``hit`` means occluded within
     t_max. The BVH path sorts each batch by parent-hit keys (``sort_hint``,
     the previous hit's triangle per lane, through the leaf-of-triangle
-    table built once here), or by octant keys when no hint is given."""
+    table ``leaf_of``, built here when not given), or by octant keys when
+    no hint is given."""
     algo = "watertight" if opts.intersector == Intersector.WATERTIGHT else "mt"
     # the hit choice carries no gradient: tables come from detached corners,
     # so no graph is recorded over them
     corners = [c.detach() for c in scene.geometry.corners()]
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
         tables = pallas_traverse.pack_tables_auto(scene.bvh, *corners)
-        leaf_of = traverse.leaf_of_tri_table(scene.bvh)
+        if leaf_of is None:
+            leaf_of = traverse.leaf_of_tri_table(scene.bvh)
         # the closure holds the tree, not the scene: cached contexts and
         # captured graphs must not keep a scene alive
         tree = types.SimpleNamespace(bvh=scene.bvh)
@@ -173,9 +177,9 @@ def _shade(scene, ctx_base, integrator, hit, o, d, active, throughput, bounce, u
     return surf, radiance, ctx["delta"]
 
 
-def _build_context(scene: Scene, opts: RenderOptions):
+def _build_context(scene: Scene, opts: RenderOptions, leaf_of=None):
     present = scene.materials.types_present
-    return dict(raycast=make_raycast_fn(scene, opts),
+    return dict(raycast=make_raycast_fn(scene, opts, leaf_of),
                 tables=build_shade_tables(scene), present=present,
                 light_area=opts.light_pick == LightPick.AREA,
                 env_dist=envmap.build_distribution(scene) if opts.env_nee else None,
@@ -398,12 +402,22 @@ def render_rows(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offs
         lane_base = sample_offset + (sample_idx - sample_offset) * quota
         lo = trace_persistent(scene, opts, cam, key, pixel_idx, px, py, lane_base, quota)
         return lo.reshape(rows, opts.width, lanes_pp, 3).sum(dim=2)
-    pixel_idx, px, py, sample_idx = _lane_ids(opts, spp_chunk, sample_offset, row0, rows, dev)
+    lo = _fixed_depth(scene, _context(scene, opts), opts, cam, key, sample_offset, spp_chunk,
+                      row0, rows)
+    return lo.reshape(rows, opts.width, spp_chunk, 3).sum(dim=2)
+
+
+def _fixed_depth(scene: Scene, ctx: dict, opts: RenderOptions, cam: Camera, key, sample_offset,
+                 spp_chunk: int, row0, rows: int):
+    """(N, 3) radiance of the fixed-depth wavefront over the band's lanes
+    (``spp_chunk`` consecutive lanes a pixel): pixel jitter, camera rays,
+    then :func:`trace`'s bounces with the context ``ctx``."""
+    pixel_idx, px, py, sample_idx = _lane_ids(opts, spp_chunk, sample_offset, row0, rows,
+                                              scene.device)
     r1, r2 = _pixel_jitter(opts, key, pixel_idx, sample_idx)
     o, d = camera_mod.generate_rays(cam, opts.width, opts.height, px, py, opts.subpixel_jitter,
                                     r1, r2)
-    lo = trace(scene, opts, key, o, d, pixel_idx, sample_idx)
-    return lo.reshape(rows, opts.width, spp_chunk, 3).sum(dim=2)
+    return _trace(scene, ctx, opts, key, o, d, pixel_idx, sample_idx)
 
 
 class _BandBody:
@@ -457,12 +471,8 @@ class _BandBody:
             # view), as ``step`` writes the carry in place
             self.state = {k: v.contiguous() for k, v in st.items()}
             return
-        pixel_idx, px, py, sample_idx = _lane_ids(opts, self.spp, offset, row0, self.rows, dev)
-        r1, r2 = _pixel_jitter(opts, key, pixel_idx, sample_idx)
-        o, d = camera_mod.generate_rays(self.cam, opts.width, opts.height, px, py,
-                                        opts.subpixel_jitter, r1, r2)
-        self.state = dict(lo_total=_trace(self.scene, self.ctx, opts, key, o, d, pixel_idx,
-                                          sample_idx))
+        self.state = dict(lo_total=_fixed_depth(self.scene, self.ctx, opts, self.cam, key,
+                                                offset, self.spp, row0, self.rows))
 
     def step(self):
         st = self.state
@@ -478,13 +488,47 @@ class _BandBody:
         return self.state["lo_total"].reshape(self.rows, self.opts.width, lanes_pp, 3).sum(dim=2)
 
 
-def _set_inputs(buf, key, sample_offset, row0) -> None:
-    """Key words, sample offset and first row into a unit's int64 input
-    buffer: one copy from the host for python values, device copies for
-    tensors."""
-    parts = (key, sample_offset, row0)
+class _GradBody:
+    """The capture-safe differentiable forward of a training unit:
+    :func:`render_rows`' fixed-depth work for ``spp_chunk`` samples over
+    the band of ``rows`` rows from ``row0``, reading the key words and the
+    sample offset from the int64 buffer ``inputs`` (k0, k1, offset) and
+    never reading the device from the host. Each call builds the shading
+    tables (they carry the gradient) and the raycast's tables from the
+    scene it is given, so a captured call packs the corners and tree boxes
+    as they stand at each replay; the leaf-of-triangle table depends on
+    the tree's topology alone and is built once here. The persistent
+    loop has no gradient (``trace_persistent``), so ``samples_per_lane``
+    above 1 raises."""
+
+    def __init__(self, scene: Scene, opts: RenderOptions, spp_chunk: int, row0: int, rows: int):
+        if _quota(opts, spp_chunk) > 1:
+            raise RuntimeError(
+                "trace_persistent has no gradient (a while loop in the reference); render "
+                "with samples_per_lane=1 to differentiate")
+        self.opts, self.spp, self.row0, self.rows = opts, spp_chunk, row0, rows
+        self.inputs = torch.zeros((3,), dtype=torch.int64, device=scene.device)
+        self.leaf_of = traverse.leaf_of_tri_table(scene.bvh) if (
+            opts.accelerator == Accelerator.BVH and scene.bvh is not None) else None
+
+    def __call__(self, scene: Scene, cam: Camera, chunk_offset: int = 0):
+        """The (rows, W, 3) radiance sum of samples from ``offset +
+        chunk_offset``, recorded by autograd in ``scene``'s and ``cam``'s
+        tensors."""
+        opts = self.opts
+        lo = _fixed_depth(scene, _build_context(scene, opts, self.leaf_of), opts, cam,
+                          self.inputs[0:2], self.inputs[2] + chunk_offset, self.spp, self.row0,
+                          self.rows)
+        return lo.reshape(self.rows, opts.width, self.spp, 3).sum(dim=2)
+
+
+def _set_inputs(buf, key, sample_offset, row0=None) -> None:
+    """Key words, sample offset and (for a render unit) first row into a
+    unit's int64 input buffer: one copy from the host for python values,
+    device copies for tensors."""
+    parts = (key, sample_offset) if row0 is None else (key, sample_offset, row0)
     if not any(isinstance(x, torch.Tensor) for x in parts):
-        buf.copy_(torch.as_tensor(np.asarray([*key, sample_offset, row0], dtype=np.int64)))
+        buf.copy_(torch.as_tensor(np.asarray([*key, *parts[1:]], dtype=np.int64)))
         return
     for dst, x in zip((buf[0:2], buf[2:3], buf[3:4]), parts):
         if isinstance(x, torch.Tensor):
