@@ -52,7 +52,10 @@ exits non-zero (there is no CPU fallback):
      sorted and unsorted traversal times, the sorted results scattered
      back equal to the unsorted ones word for word), with its counters;
      the render of the 1M scene at 3b's settings, sorted and unsorted, as
-     in phase 3; the per-stage breakdown of ``profile.stage_breakdown``;
+     in phase 3; the per-stage breakdown of ``profile.stage_breakdown``,
+     its stages captured as CUDA graphs (as it runs) and eagerly, each the
+     least of 3 replays or calls after one more, CUDA events; every
+     captured stage's outputs equal to the eager stage's word for word;
   3g. the full-material render (config 3g): the Cornell box with Phong
      walls and a glass block at bench config 2's width (512x512, 4 bounces,
      DIRECT_MIS, persistent lanes), spp cut from 256 to 16; then the 242k
@@ -61,10 +64,26 @@ exits non-zero (there is no CPU fallback):
   3c. the compacted two-phase traversal (``scripts/compact_bench.py``'s
      workload, through ``terra_tpu_torch.scripts.compact_bench``): the 1M
      courtyard, 2^20 dir3-sorted camera rays, frontiers of M = 128 and 256
-     leaves, rows of 128 lanes; F, rounds, active rays per tail round,
-     BVH4 launches, and the compact seconds against the classic walk, held
-     to it (0 hit-mask mismatches, t within rtol 1e-4, >= 99% same
-     triangle);
+     leaves, rows of 128 lanes, tail buckets (1, 8, 64); the stages
+     within ``compact.GRAPH_SWEEP`` captured as units by the first call,
+     the others op by op at their exact sizes, a later call capturing
+     nothing; F, rounds, active rays and lanes run per tail round, BVH4
+     launches per call of ``raycast_compact`` and of the eager call
+     (equal), replays per call, warm-up and capture seconds, pool bytes,
+     the hits equal to the eager call's (``raycast_compact_eager``) word
+     for word, and both held to the classic walk (0 hit-mask mismatches, t
+     within rtol 1e-4, >= 99% same triangle); the compact seconds against
+     the classic walk (least of 3), eager and ``raycast_compact`` in turns
+     (E G G E E G, medians of 3), phase 1 alone; each stage of one call
+     timed op by op at its exact size and as a unit replayed at its bucket
+     and at the least power of two that holds it; then
+     tests/test_torch_compact.py's ray-0 case (600 rays of a 3000-triangle
+     scene, frontiers of 4 leaves, the ray with the most pairs before its
+     hit as ray 0) with tail buckets, every stage a replayed unit: ray 0's
+     hit the classic walk's word for word, the last rounds padded (its
+     launches are printed apart from the main path's); and M = 128 with
+     tail buckets (1, 8, 64, 512, 4096), whose small tail rounds replay
+     units, against the eager walk in turns, hits equal word for word;
   4. twins: a small courtyard rendered on CPU tensors (plain traversal)
      and on CUDA tensors (the kernels), once with each table kind (binary,
      f32, bf16, paged with 4 resident nodes), compared with the golden-test
@@ -2191,6 +2210,162 @@ def _graph_time(torch, ttt, graphs, scene, cam, opts, kernels: bool) -> dict:
                 top=rows[:10])
 
 
+def _tensors(obj) -> list:
+    """Every tensor in ``obj`` (tensors, tuples, lists, dataclasses)."""
+    if hasattr(obj, "data_ptr"):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, (tuple, list)):
+        return [t for x in obj for t in _tensors(x)]
+    return []
+
+
+def _tensor_words(torch, a, b) -> int:
+    """Differing elements of two tensors, floats compared by their bits."""
+    if a.dtype in (torch.float32, torch.int32):
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _stage_ab(torch, scene, cam, opts) -> dict:
+    """Phase 3m's stage breakdown: ``profile.stage_breakdown`` with its
+    stages captured (``graphs.staged_unit``, as it runs) and eagerly
+    (``staged_unit`` patched to hand back the body), both the least of 3
+    after one more (CUDA events); each captured stage's outputs, replayed,
+    against the eager stage's, word for word; each unit's warm-up, capture
+    and pool."""
+    from terra_tpu_torch import graphs, profile
+
+    kept = {}
+    real = graphs.staged_unit
+
+    def keeping(eager):
+        def make(body):
+            kept[(eager, body.stages[0])] = unit = body if eager else real(body)
+            return unit
+        return make
+
+    secs = {}
+    for eager in (False, True):
+        with mock.patch.object(graphs, "staged_unit", keeping(eager)):
+            secs[eager] = profile.stage_breakdown(scene, cam, opts, probe_lanes=1 << 18)
+    words = {}
+    for name in secs[False]:
+        g = _tensors(kept[(False, name)].replay(name))
+        e = _tensors(kept[(True, name)].run(name))
+        torch.cuda.synchronize()
+        words[name] = sum(_tensor_words(torch, x, y) for x, y in zip(g, e)) + \
+            abs(len(g) - len(e))
+    units = {name: kept[(False, name)].describe() for name in secs[False]}
+    print("  stage breakdown (1M scene, 2^18 camera lanes, least of 3 after one more, CUDA "
+          "events), graphed vs eager: " + ", ".join(
+              f"{k} {secs[False][k] * 1e3:.3f} ms vs {secs[True][k] * 1e3:.3f} ms "
+              f"({words[k]} words differ; warm-up {units[k]['warmup_s']:.3f} s, capture "
+              f"{units[k]['capture_s']:.3f} s, pool {units[k]['pool_bytes'] / 2**20:.1f} MiB)"
+              for k in secs[False]), flush=True)
+    if any(words.values()) or not all(0 < v < float("inf") for v in secs[False].values()):
+        raise AssertionError(f"a captured stage disagrees with the eager one: {words}")
+    return dict(graphed_s=secs[False], eager_s=secs[True], words=words, units=units)
+
+
+def _bucket_ab(torch, pt, compact_bench, scene, cam, dev) -> dict:
+    """Phase 3c's fine-bucket case: ``raycast_compact`` at M = 128 on 2^20
+    dir3-sorted camera rays of ``scene`` with tail buckets (1, 8, 64, 512,
+    4096), whose rounds of at most n/512 active rays fit
+    ``compact.GRAPH_SWEEP`` and replay units (captured by the first call
+    into the run's one pool, none by a later call), against
+    ``raycast_compact_eager`` in turns (E G G E E G, medians of 3, host
+    clock ending in a synchronise); hits equal word for word, BVH4
+    launches per call equal."""
+    from terra_tpu_torch import graphs
+    from terra_tpu_torch.accel import compact, traverse
+
+    o, d = _camera_rays(torch, cam, 1024, dev)
+    order = traverse.sort_order(scene.bvh, o, d, "dir3")
+    o, d = o[order].contiguous(), d[order].contiguous()
+    tables = pt.pack_tables_auto(scene.bvh, *scene.geometry.corners())
+    fr = compact.build_frontier(scene.bvh, 128)
+    buckets = (1, 8, 64, 512, 4096)
+    fns = {"eager": functools.partial(compact.raycast_compact_eager, scene.bvh, tables, fr, o, d),
+           "graphed": functools.partial(compact.raycast_compact, scene.bvh, tables, fr, o, d,
+                                        tail_buckets=buckets)}
+    first, again = {}, {}
+    fns["graphed"](stats=first)
+    words = compact_bench._words(fns["graphed"](stats=again), fns["eager"]())
+    launches = {k: compact_bench._launches4(f) for k, f in fns.items()}
+    secs = compact_bench._turns(fns, dev)
+    med = {k: sorted(v)[1] for k, v in secs.items()}
+    units = [u.describe() for u in again["units"].values() if isinstance(u, graphs.StagedUnit)]
+    pool = sum(u["pool_bytes"] for u in units)
+    print(f"  tail buckets {buckets}, M=128: lanes per tail round {again['buckets']} (active "
+          f"{again['active']}); captures {first['captures']} (a later call {again['captures']}),"
+          f" replays per call {again['replays']}, pool {pool / 2**20:.1f} MiB; in turns (E G G E "
+          f"E G, medians of 3) eager {med['eager']:.4f} s, raycast_compact "
+          f"{med['graphed']:.4f} s; BVH4 launches per call {launches}; hits {words} words "
+          f"differ", flush=True)
+    if words or not first["captures"] or again["captures"] or not again["replays"] or \
+            launches["graphed"] != launches["eager"]:
+        raise AssertionError("the compact walk's units disagree with the eager walk")
+    return dict(median_s=med, turns_s=secs, buckets=again["buckets"], active=again["active"],
+                captures=first["captures"], replays=again["replays"], pool_bytes=pool)
+
+
+def _ray_zero_gate(torch, ttt, pt, dev) -> collections.Counter:
+    """tests/test_torch_compact.py's ray-0 case on the card: 600 rays of
+    the 3000-triangle random scene (seed 5) against frontiers of 4 leaves,
+    the ray with the most pairs entered before its closest hit moved to
+    ray 0, through ``raycast_compact`` with tail buckets (1, 8, 64), every
+    stage a replayed unit. Ray 0's hit must be the classic walk's word for
+    word, every hit the classic walk's (hit masks, t within 1e-5, >= 99%
+    same triangle), the last tail rounds padded, and the hits equal to the
+    eager call's word for word. Returns the graphed call's launches."""
+    from terra_tpu_torch import intersect
+    from terra_tpu_torch.accel import compact
+
+    sc = ttt.scenes.random_triangles(3000, seed=5, accelerator=ttt.Accelerator.BVH, device=dev)
+    tables = pt.pack_tables_wide(sc.bvh, *sc.geometry.corners())
+    fr = compact.build_frontier(sc.bvh, 4)
+    r = np.random.default_rng(81)
+    o = r.uniform(-2, 2, (600, 3)).astype(np.float32)
+    d = r.normal(size=(600, 3)).astype(np.float32)
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d / np.linalg.norm(
+        d, axis=-1, keepdims=True), device=dev)
+    ref_t, ref_i = pt.traverse_packed(tables, o, d)
+    keys = compact._entry_keys(fr, o, d)
+    before = ((keys != compact.KEY_INF) & (keys.view(torch.float32) < ref_t[:, None])).sum(1)
+    first = int(torch.argmax(torch.where(ref_t < intersect.T_FAR, before, 0)))
+    perm = torch.cat([torch.tensor([first], device=dev),
+                      torch.arange(600, device=dev)[torch.arange(600, device=dev) != first]])
+    o, d = o[perm].contiguous(), d[perm].contiguous()
+    ref_t, ref_i = ref_t[perm], ref_i[perm]
+    stats = {}
+    compact.raycast_compact(sc.bvh, tables, fr, o, d, stats=stats)  # captures
+    pt.launches = pt.launches4 = 0
+    got = compact.raycast_compact(sc.bvh, tables, fr, o, d, stats=stats)
+    torch.cuda.synchronize()
+    launches = collections.Counter(binary=pt.launches, bvh4=pt.launches4)
+    eager = compact.raycast_compact_eager(sc.bvh, tables, fr, o, d)
+    hit = ref_t < intersect.T_FAR
+    words = _tensor_words(torch, got.t, eager.t) + _tensor_words(torch, got.tri, eager.tri)
+    zero = bool(got.hit[0]) and _tensor_words(torch, got.t[:1], ref_t[:1]) == 0 and \
+        int(got.tri[0]) == int(ref_i[0])
+    same = float((got.tri[hit] == ref_i[hit]).float().mean())
+    close = bool(torch.allclose(got.t[hit], ref_t[hit], rtol=1e-5, atol=0.0))
+    mism = int((got.hit != hit).sum())
+    padded = stats["buckets"][-1] > stats["active"][-1]
+    print(f"  ray 0 under tail buckets (1, 8, 64), graphed: {int(before[first])} pairs before "
+          f"its hit, rounds {stats['rounds']}, active {stats['active']}, buckets "
+          f"{stats['buckets']}, replays {stats['replays']}; ray 0 equal to the classic walk "
+          f"{zero}; hit-mask mismatches {mism}, t close {close}, same-tri {same:.6f}; vs eager "
+          f"{words} words differ; BVH4 launches {launches['bvh4']}", flush=True)
+    replayed = stats["replays"] == stats["rounds"] - 1  # the head and every tail round
+    if not (zero and close and same > 0.99 and mism == 0 and words == 0 and padded
+            and replayed and stats["captures"] == 0 and int(before[first]) >= 5):
+        raise AssertionError("the graphed compact walk lost ray 0 or disagrees")
+    return launches
+
+
 def _words(torch, a, b) -> int:
     """Differing 32-bit words of two films (accumulator and sample counts)."""
     return int((a.acc.view(torch.int32) != b.acc.view(torch.int32)).sum()) + \
@@ -2759,7 +2934,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import terra_tpu_torch as ttt
-    from terra_tpu_torch import _build, graphs, intersect, native, probes, profile
+    from terra_tpu_torch import _build, graphs, intersect, native, probes
     from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.accel import traverse
     from terra_tpu_torch.scripts import compact_bench
@@ -2937,9 +3112,7 @@ def main() -> None:
     main_launches.update(binary=l2, bvh4=l4)
     if pt.wide_mode(mega.bvh) is not None and l4 <= 0:
         raise AssertionError("the 1M render did not launch the BVH4 kernel")
-    stages = profile.stage_breakdown(mega, cam, opts, probe_lanes=1 << 18)
-    print("  stage breakdown (1M scene, 2^18 camera lanes, least of 3, CUDA events): "
-          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()), flush=True)
+    _stage_ab(torch, mega, cam, opts)
 
     # 3g. the full-material render at bench config 2's width (bench.py:202-219,
     # spp cut from 256 to 16), then the courtyard under a constant sky
@@ -2962,7 +3135,20 @@ def main() -> None:
     for m, row in bench["M"].items():
         print(f"  M={m}: F={row['F']}, rounds {row['rounds']}, compact {row['compact_s']:.4f} s "
               f"vs classic {bench['classic_s']:.4f} s (host clock, least of 3), hit-mask "
-              f"mismatches {row['hit_mismatch']}, same-tri {row['same_tri']:.6f}", flush=True)
+              f"mismatches {row['hit_mismatch']}, same-tri {row['same_tri']:.6f}; in turns "
+              f"(E G G E E G, medians of 3) eager {row['eager_median_s']:.4f} s, graphed "
+              f"{row['graphed_median_s']:.4f} s; phase 1 {row['phase1_s']:.4f} s; captures "
+              f"{row['captures']} (a later call {row['captures_again']}), replays per call "
+              f"{row['replays_per_call']}, warm-up {row['warmup_s']:.3f} s, capture "
+              f"{row['capture_s']:.3f} s, pool {row['pool_bytes'] / 2**20:.1f} MiB, lanes "
+              f"per tail round {row['buckets']}, BVH4 launches per call graphed "
+              f"{row['launches_graphed']} eager {row['launches_eager']}, graphed hits vs eager "
+              f"{row['eager_words']} words differ", flush=True)
+    _bucket_ab(torch, pt, compact_bench, mega, cam, dev)
+    gate_launches = _ray_zero_gate(torch, ttt, pt, dev)  # a gate, not the main path
+    print(f"  the ray-0 gate's launches (not counted as the main path's): "
+          f"{dict(gate_launches)}", flush=True)
+    graphs.clear()  # the compaction's pools (several GiB) go before phase 4
 
     # 4. twins: cpu tensors (plain) vs cuda tensors (kernel), per table kind
     kw = dict(grid=40, columns=8)

@@ -48,8 +48,9 @@ __all__ = ["Tables", "WideTables", "pack_tables", "pack_tables_wide", "pack_tabl
            "pack_tables_auto", "paged_resident", "wide_mode", "use_wide", "raycast",
            "raycast_plain", "raycast_cuda", "raycast4_plain", "raycast4_cuda",
            "traverse_packed", "count_decode", "leaf_real_counts", "load_kernel", "load_kernel4",
-           "occupancy", "launches",
-           "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "PACKET"]
+           "occupancy", "fits_smem", "supported", "launches",
+           "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "SMEM_NODE_BUDGET",
+           "PACKET"]
 
 # Per-thread stack entries, the reference's STACK_DEPTH. The ordered binary
 # DFS holds at most depth + 2 entries, the BVH4 walk 3 * wide_depth + 2;
@@ -93,6 +94,12 @@ NODE_TABLE_BUDGET = 16 << 20
 # through pack_tables_paged and paged_resident.
 PAGED_SMEM_BUDGET = 16 << 10
 MAX_BLOCK_SMEM = 227 << 10
+# Node-table bytes a block of a traversal kernel may stage in shared
+# memory: the H100's per-block maximum. Only the paged tables stage nodes
+# (their resident [0, S), sized by PAGED_SMEM_BUDGET); every other kind is
+# read from device memory. The reference's 792 KB was the TPU's scalar
+# memory, which held its whole node table.
+SMEM_NODE_BUDGET = MAX_BLOCK_SMEM
 
 # Number of kernel launches made through raycast_cuda and raycast4_cuda.
 launches = 0
@@ -173,15 +180,16 @@ def _check_rays(o, d, t_max):
         raise ValueError(f"t_max must be float32 (N,), got {t_max.dtype} {tuple(t_max.shape)}")
 
 
-def _check_start(start, n: int, num_nodes: int):
+def _check_start(start, n: int, num_nodes: int, checked: bool = False):
     """Start links: (n,) i32 node ids of the walk's id space (a node, or
     the inner-node count + a leaf id), each in [0, num_nodes). The range
-    check reads the minimum and maximum back to the host."""
+    check reads the minimum and maximum back to the host; ``checked``
+    (links the caller built from ids it checked) skips it."""
     if start is None:
         return
     if start.dtype != torch.int32 or start.shape != (n,):
         raise ValueError(f"start must be int32 ({n},), got {start.dtype} {tuple(start.shape)}")
-    if n:
+    if n and not checked:
         lo, hi = (int(v) for v in torch.aminmax(start))
         if lo < 0 or hi >= num_nodes:
             raise ValueError(f"start links span [{lo}, {hi}]; the tables hold nodes "
@@ -500,6 +508,23 @@ def use_wide(bvh) -> bool:
     return wide_mode(bvh) is not None
 
 
+def fits_smem(bvh) -> bool:
+    """The node bytes a block stages for the tables :func:`pack_tables_auto`
+    picks fit :data:`SMEM_NODE_BUDGET`: true for every tree, since the
+    paged tables stage at most :data:`PAGED_SMEM_BUDGET` and the other kinds
+    stage nothing."""
+    if wide_mode(bvh) != "paged":
+        return True
+    return paged_resident(bvh.num_wide, "bf16") * WIDE_BF16_NODE_BYTES <= SMEM_NODE_BUDGET
+
+
+def supported(bvh) -> bool:
+    """The kernels can walk the whole scene: only the staged node bytes
+    gate, as in the reference (the triangle slots live in device memory,
+    so the triangle count is unbounded)."""
+    return fits_smem(bvh)
+
+
 def pack_tables_auto(bvh, tri_a, tri_b, tri_c):
     """The tables of the kind :func:`wide_mode` picks."""
     mode = wide_mode(bvh)
@@ -708,11 +733,14 @@ def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: 
 
 
 def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
-                  algo: str = "mt", count: bool = False, start=None):
+                  algo: str = "mt", count: bool = False, start=None,
+                  start_checked: bool = False):
     """Launch the BVH4 CUDA kernel on the current stream. Every tensor must
     be contiguous and on the same CUDA device; ``start`` as for
-    :func:`raycast4_plain`. Returns (best_t, best_i), and with ``count``
-    also the (N, 3) i32 per-ray counters."""
+    :func:`raycast4_plain`. ``start_checked``: the caller built ``start``
+    from node ids it checked, so the launch reads nothing back to the host
+    and can be captured in a CUDA graph. Returns (best_t, best_i), and
+    with ``count`` also the (N, 3) i32 per-ray counters."""
     global launches4
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
@@ -723,7 +751,7 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     ins += [x for x in (t_max, start) if x is not None]
     dev = _check_cuda(ins, "raycast4_cuda")
     _check_stack4(tables)
-    _check_start(start, o.shape[0], _wide_nodes(tables))
+    _check_start(start, o.shape[0], _wide_nodes(tables), start_checked)
     per_node = WIDE_BF16_NODE_BYTES if tables.box_enc == "bf16" else WIDE_F32_NODE_BYTES
     if tables.s_resident * per_node > MAX_BLOCK_SMEM:
         raise ValueError(f"{tables.s_resident} resident nodes need "
@@ -766,11 +794,12 @@ def occupancy(tables, has_tmax: bool = False, any_hit: bool = False, algo: str =
 
 
 def traverse_packed(tables, o, d, t_max=None, any_hit: bool = False, algo: str = "mt",
-                    count_steps: bool = False, start=None):
+                    count_steps: bool = False, start=None, start_checked: bool = False):
     """Bench entry: walk pre-packed tables of any kind on (N, 3) rays in
     the order given, the plain version for CPU tensors and the kernel for
     CUDA tensors. ``start``: optional (N,) i32 start links in the tables'
-    id space. Returns (best_t, best_i), and with ``count_steps`` (BVH4
+    id space (``start_checked`` as for :func:`raycast4_cuda`, BVH4 tables
+    only). Returns (best_t, best_i), and with ``count_steps`` (BVH4
     tables only) also the per-ray counters for :func:`count_decode`. The
     tables carry their own kind, so the reference's ``bvh`` and ``mode``
     arguments have no counterpart."""
@@ -778,8 +807,11 @@ def traverse_packed(tables, o, d, t_max=None, any_hit: bool = False, algo: str =
         raise ValueError(f"no traversal for device {o.device}")
     cpu = o.device.type == "cpu"
     if isinstance(tables, WideTables):
-        fn = raycast4_plain if cpu else raycast4_cuda
-        return fn(tables, o, d, t_max, any_hit, algo, count=count_steps, start=start)
+        if cpu:
+            return raycast4_plain(tables, o, d, t_max, any_hit, algo, count=count_steps,
+                                  start=start)
+        return raycast4_cuda(tables, o, d, t_max, any_hit, algo, count=count_steps, start=start,
+                             start_checked=start_checked)
     if count_steps:
         raise ValueError("step counters are kept by the BVH4 walk only")
     fn = raycast_plain if cpu else raycast_cuda

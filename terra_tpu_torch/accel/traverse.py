@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..intersect import RayHit, T_FAR, leaf_test
+from ..intersect import RayHit, T_FAR, mt_grid_components
 
 __all__ = ["hinted_keys", "leaf_of_tri_table", "sort_order", "raycast", "PACKET_SIZE"]
 
@@ -142,18 +142,6 @@ def sort_order(bvh, o, d, mode: str = "octant", sort_hint=None, leaf_of_tri=None
     return torch.argsort(keys, stable=True)
 
 
-def _grid(isect, o, d, a, b, c):
-    """(valid, t) of every ray of a packet against every triangle of its
-    leaf: o, d (P2, P, 3) and a, b, c (P2 or 1, L, 3) -> (P2, P, L)."""
-    def rays(v):
-        return tuple(v[..., :, None, k] for k in range(3))
-
-    def tris(v):
-        return tuple(v[..., None, :, k] for k in range(3))
-
-    return isect(rays(o), rays(d), tris(a), tris(b), tris(c))
-
-
 def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096, algo: str = "mt",
                     t_init=None, any_hit: bool = False):
     """o, d: (P2, P, 3) packets. Returns (best_t, best_tri), each (P2, P).
@@ -167,7 +155,6 @@ def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096, algo:
     here, which reads that flag from the device once per iteration.
     ``max_outer`` is the reference's argument, which its loop does not use
     either."""
-    isect = leaf_test(algo)
     p2, p, _ = o.shape
     ni = bvh.num_internal
     inv_d = torch.where(torch.abs(d) > 1e-12, 1.0 / d, 1e12)
@@ -177,7 +164,7 @@ def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096, algo:
     best_t = torch.full((p2, p), T_FAR, dtype=torch.float32, device=o.device) \
         if t_init is None else t_init
     if ni == 0:  # a single leaf: test it directly
-        valid, t = _grid(isect, o, d, la[:1], lb[:1], lc[:1])
+        valid, t = mt_grid_components(o, d, la[:1], lb[:1], lc[:1], algo=algo)
         t = torch.where(valid & (t < best_t[..., None]), t, T_FAR)
         t_leaf, arg = torch.min(t, dim=2)
         return torch.minimum(t_leaf, best_t), leaf_tri[0][arg].to(torch.int32)
@@ -206,7 +193,8 @@ def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096, algo:
             cur = torch.where(live & ~ready, nxt, cur)
         at_leaf = cur >= ni
         leaf_id = torch.where(at_leaf, cur - ni, 0)
-        valid, t = _grid(isect, o, d, la[leaf_id], lb[leaf_id], lc[leaf_id])
+        valid, t = mt_grid_components(o, d, la[leaf_id], lb[leaf_id], lc[leaf_id],
+                                      algo=algo)
         t = torch.where(valid & at_leaf[:, None, None], t, T_FAR)
         t_leaf, arg = torch.min(t, dim=2)
         tri = leaf_tri[leaf_id[:, None], arg].to(torch.int32)

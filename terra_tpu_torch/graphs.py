@@ -22,10 +22,16 @@ kernels and refuses any op that synchronises with the host. A failed
 capture or replay raises, naming the stage; nothing falls back to eager
 rendering. ``render.render_rows`` stays the eager body, by name.
 
-Training units (:class:`TrainUnit`) serve ``optim``'s steps the same
-way: the forward (autograd recorded inside the capture), the backward
-and the optimiser's update, one graph each in one pool, replayed in
-capture order; the sharded steps' all-reduces run between replays.
+Staged units (:class:`StagedUnit`) capture a body's named stages, one
+graph each in one pool. Training units (:class:`TrainUnit`) serve
+``optim``'s steps this way: the forward (autograd recorded inside the
+capture), the backward and the optimiser's update, replayed in capture
+order; the sharded steps' all-reduces run between replays. The compacted
+traversal (``accel.compact``) runs its dispatch-bound stages (phase 1 with
+its first two rounds, and tail rounds padded to their buckets) as staged
+units in one pool over one run's static buffers, reading the active count
+back between replays; ``profile.stage_breakdown`` times its stages as
+staged units.
 
 The traversal wrappers count launches when they enqueue a kernel, so a
 replay would count nothing. A unit records each graph's captured launches,
@@ -52,8 +58,9 @@ import torch
 
 from .accel import pallas_traverse
 
-__all__ = ["Unit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit", "train_unit",
-           "units", "clear", "CONTEXTS", "MAX_UNITS", "MAX_TRAIN_UNITS"]
+__all__ = ["Unit", "StagedUnit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit",
+           "train_unit", "staged_unit", "compact_run", "units", "clear", "CONTEXTS", "MAX_UNITS",
+           "MAX_TRAIN_UNITS", "MAX_COMPACT_RUNS"]
 
 # Live captured units; the least recently used one goes first. A unit's
 # pool holds about one eager call's peak memory (up to ~2 GB at the
@@ -62,6 +69,11 @@ MAX_UNITS = 8
 # Live training units: a pool holds every chunk's saved forward and the
 # backward's temporaries, several GB at a 1M-lane wavefront.
 MAX_TRAIN_UNITS = 2
+# Live compaction runs (``accel.compact``), each its static buffers and the
+# units of its stages within ``compact.GRAPH_SWEEP`` in one pool: a stage's
+# temporaries, a few (lanes x F) tiles of at most 2^23 entries. Their own
+# cache, so two frontiers' units never evict the render's.
+MAX_COMPACT_RUNS = 4
 
 
 def _leaves(obj, out: list, moving) -> list:
@@ -245,23 +257,23 @@ class Unit:
                     trips_per_step=self.trips_per_step, max_steps=self.steps)
 
 
-class TrainUnit:
-    """A training step's stages captured from ``body`` (``optim``'s step
-    bodies) in order into one memory pool, and replayed in that order.
+class StagedUnit:
+    """A body's stages (``body.stages``, each run by ``body.run(stage)``,
+    which returns its static output) captured in order into one memory
+    pool, and replayed in that order or one by one. Units whose replays
+    never overlap and whose stages leave nothing in the pool after they
+    end (their outputs written to buffers made outside it) may share one
+    ``pool`` (``torch.cuda.graph_pool_handle()``).
 
-    The body names its stages (``body.stages``: the forward, recorded by
-    autograd inside the capture; the backward, ``torch.autograd.grad``
-    from the forward's saved tensors, which the shared pool keeps; for a
-    step, the optimiser's update) and runs one with ``body.run(stage)``,
-    returning its static output. Before capture every stage runs once
-    eagerly on a side stream under ``set_sync_debug_mode("error")``; that
-    warm-up steps the optimiser, so ``body.save()`` before it and
-    ``body.restore(saved)`` after it put the parameters and the optimiser
-    state back. A stage that fails to warm up or to capture raises, naming
-    it; nothing falls back to eager dispatch. Collectives run between
-    replays, never inside a graph."""
+    Before capture every stage runs once eagerly on a side stream under
+    ``set_sync_debug_mode("error")``. The warm-up writes whatever the
+    stages write in place, so ``body.save()`` before it and
+    ``body.restore(saved)`` after it put that state back. A stage that
+    fails to warm up or to capture raises, naming it; nothing falls back
+    to eager dispatch. Host reads and collectives run between replays,
+    never inside a graph."""
 
-    def __init__(self, body, device):
+    def __init__(self, body, device, pool=None):
         device = torch.device(device)
         self.label, self.inputs, self.stages = body.label, body.inputs, tuple(body.stages)
         t0 = time.perf_counter()
@@ -283,7 +295,7 @@ class TrainUnit:
         self.warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()  # as in Unit: the reserved bytes added are the pool's
         reserved = torch.cuda.memory_reserved(device)
-        pool = torch.cuda.graph_pool_handle()
+        pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self._graphs = {}
         for s in self.stages:
             graph = torch.cuda.CUDAGraph()
@@ -295,10 +307,9 @@ class TrainUnit:
             self._graphs[s] = (graph, tuple(counts), out)
         self.capture_s = time.perf_counter() - t0 - self.warmup_s
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        # what the graphs read that no owner keeps alive (buffers, target,
-        # parameters, the leaf table); the body itself holds the owners
+        # what the graphs read that no owner keeps alive (static buffers,
+        # tables); the body itself holds the owners
         self._keep = body.keep
-        self.cot = body.cot
         self.replays = 0
 
     def replay(self, stage: str):
@@ -320,6 +331,20 @@ class TrainUnit:
                     launches={s: c for s, (_, c, _) in self._graphs.items()})
 
 
+class TrainUnit(StagedUnit):
+    """A training step's stages (``optim``'s step bodies) as a
+    :class:`StagedUnit`: the forward, recorded by autograd inside the
+    capture; the backward, ``torch.autograd.grad`` from the forward's saved
+    tensors, which the shared pool keeps; for a step, the optimiser's
+    update. The warm-up steps the optimiser, which ``body.save()`` and
+    ``body.restore()`` undo. Collectives run between replays. ``cot`` is
+    the body's static cotangent buffer (the sharded gradient's)."""
+
+    def __init__(self, body, device):
+        super().__init__(body, device)
+        self.cot = body.cot
+
+
 def drive(body) -> tuple:
     """Run a unit or an eager body: ``start``, then ``step`` until the
     all-finished flag is set (read once per block) or ``steps`` blocks ran,
@@ -336,6 +361,7 @@ def drive(body) -> tuple:
 
 _UNITS = WeakCache(MAX_UNITS)
 _TRAIN_UNITS = WeakCache(MAX_TRAIN_UNITS)
+_COMPACT_RUNS = WeakCache(MAX_COMPACT_RUNS)
 CONTEXTS = WeakCache(8)
 
 
@@ -366,10 +392,26 @@ def train_unit(owners: tuple, key, make_body: Callable, moving=(), watch=()):
     return _TRAIN_UNITS.get(owners, key, make, moving=moving, watch=watch)
 
 
+def staged_unit(body, pool=None):
+    """``body`` captured as a :class:`StagedUnit` (into ``pool``, if given,
+    else a pool of its own) when its ``inputs`` lie on a CUDA device; on the
+    CPU the body itself, run eagerly (its ``replay`` is its ``run``)."""
+    return StagedUnit(body, body.inputs.device, pool) if body.inputs.is_cuda else body
+
+
+def compact_run(owners: tuple, key, make: Callable):
+    """The compaction run of ``key`` for ``owners`` (the BVH, held weakly),
+    made by ``make()`` on a miss: an object whose ``units`` dict holds its
+    units (see ``accel.compact``)."""
+    return _COMPACT_RUNS.get(owners, key, make)
+
+
 def units() -> list:
-    """``describe()`` of every live captured unit (render units, then
-    training units), least recently used first."""
-    return [u.describe() for u in _UNITS.values()] + \
+    """``describe()`` of every live captured unit (compaction units, render
+    units, then training units), least recently used first."""
+    return [u.describe() for r in _COMPACT_RUNS.values() for u in r.units.values()
+            if isinstance(u, StagedUnit)] + \
+        [u.describe() for u in _UNITS.values()] + \
         [u.describe() for u in _TRAIN_UNITS.values() if isinstance(u, TrainUnit)]
 
 
@@ -377,6 +419,7 @@ def clear() -> None:
     """Drop every captured unit and every cached render context (a caller
     that swaps a traversal function or the table packer under a live
     scene calls this)."""
+    _COMPACT_RUNS.clear()
     _UNITS.clear()
     _TRAIN_UNITS.clear()
     CONTEXTS.clear()

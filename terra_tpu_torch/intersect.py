@@ -16,8 +16,8 @@ from .ops import math3
 
 __all__ = [
     "RayHit", "mask_dead_rays", "ray_aabb", "moller_trumbore", "mt_components",
-    "watertight_components", "raycast_brute", "RAY_OFFSET_DIR", "SURFACE_OFFSET_NORMAL", "T_FAR",
-    "MISS_ORIGIN",
+    "watertight_components", "mt_grid_components", "raycast_brute", "RAY_OFFSET_DIR",
+    "SURFACE_OFFSET_NORMAL", "T_FAR", "MISS_ORIGIN",
 ]
 
 RAY_OFFSET_DIR = 1e-3        # origin nudge along the direction
@@ -162,13 +162,39 @@ def leaf_test(algo: str):
     raise ValueError(f"unknown intersector {algo!r}")
 
 
+def _comps(v, ray_axis: bool):
+    """(..., 3) split into broadcastable component tuples: rays get a
+    trailing singleton triangle axis, triangles a leading singleton ray
+    axis."""
+    if ray_axis:
+        return tuple(v[..., :, None, k] for k in range(3))
+    return tuple(v[..., None, :, k] for k in range(3))
+
+
+def mt_grid_components(o, d, tri_a, tri_b, tri_c, eps: float = 1e-4, algo: str = "mt"):
+    """Dense (rays x triangles) intersection grid: o, d (..., N, 3) against
+    tri_* (..., TB, 3) gives (valid, t) of shape (..., N, TB), by the
+    intersector ``algo`` ("mt" or "watertight")."""
+    return leaf_test(algo)(_comps(o, True), _comps(d, True), _comps(tri_a, False),
+                           _comps(tri_b, False), _comps(tri_c, False), eps)
+
+
+def _closest_hit_block(o, d, tri_a, tri_b, tri_c, base_idx, algo: str = "mt"):
+    """Dense (N, TB) test of rays against one triangle block; returns each
+    ray's (best t, ``base_idx`` + the first index at that t), T_FAR where
+    nothing is hit."""
+    valid, t = mt_grid_components(o, d, tri_a, tri_b, tri_c, algo=algo)
+    best_t, best = torch.min(torch.where(valid, t, T_FAR), dim=1)
+    return best_t, base_idx + best.to(torch.int32)
+
+
 def raycast_brute(o, d, tri_a, tri_b, tri_c, ray_chunk: int = 0, tri_block: int = 1024,
                   algo: str = "mt", max_pairs: int = 1 << 24) -> RayHit:
     """Closest hit over all triangles by a dense (rays x triangle-block)
     sweep in chunks of ``ray_chunk`` rays (0: as many as keep one block at
     most ``max_pairs`` ray-triangle pairs). Equal t within a block goes to
     the lowest id; no result depends on the chunking."""
-    isect = leaf_test(algo)
+    leaf_test(algo)  # an unknown intersector raises, even with nothing to test
     n = o.shape[0]
     t_count = tri_a.shape[0]
     tri_block = max(min(tri_block, t_count), 1)
@@ -180,19 +206,15 @@ def raycast_brute(o, d, tri_a, tri_b, tri_c, ray_chunk: int = 0, tri_block: int 
     with torch.no_grad():
         for r0 in range(0, n, ray_chunk):
             co, cd = o[r0:r0 + ray_chunk], d[r0:r0 + ray_chunk]
-            oc = tuple(co[:, None, k] for k in range(3))
-            dc = tuple(cd[:, None, k] for k in range(3))
             bt = best_t[r0:r0 + ray_chunk]
             bi = best_i[r0:r0 + ray_chunk]
             for b0 in range(0, t_count, tri_block):
                 sl = slice(b0, b0 + tri_block)
-                ac, bc, cc = (tuple(x[None, sl, k] for k in range(3)) for x in (tri_a, tri_b, tri_c))
-                valid, t = isect(oc, dc, ac, bc, cc)
-                t = torch.where(valid, t, T_FAR)
-                t_blk, i_blk = torch.min(t, dim=1)
+                t_blk, i_blk = _closest_hit_block(co, cd, tri_a[sl], tri_b[sl], tri_c[sl], b0,
+                                                  algo)
                 take = t_blk < bt
                 bt = torch.where(take, t_blk, bt)
-                bi = torch.where(take, (i_blk + b0).to(torch.int32), bi)
+                bi = torch.where(take, i_blk, bi)
             best_t[r0:r0 + ray_chunk] = bt
             best_i[r0:r0 + ray_chunk] = bi
     hit = best_t < T_FAR

@@ -5,7 +5,9 @@
 Device work is asynchronous to the host, so times on a CUDA device come
 from CUDA events on the current stream, and ``device_trace`` records a
 ``torch.profiler`` trace (CPU and CUDA activities) where the reference
-used ``jax.profiler``.
+used ``jax.profiler``. Where the reference jits each stage of
+``stage_breakdown`` before timing it, the port captures it as a CUDA graph
+(``graphs.staged_unit``) and times replays.
 """
 from __future__ import annotations
 
@@ -136,6 +138,27 @@ def _best_seconds(fn, device: torch.device, reps: int = 3) -> float:
     return best
 
 
+class _StageBody:
+    """One stage of :func:`stage_breakdown` as a ``graphs.staged_unit``
+    body: it runs ``fn()``, writes nothing outside its outputs, and keeps
+    ``fn`` (whose closure holds the probe rays the graph reads)."""
+
+    def __init__(self, name: str, fn, inputs):
+        self.label, self.stages, self.inputs = f"stage {name}", (name,), inputs
+        self.keep = (fn,)
+
+    def run(self, stage: str):
+        return self.keep[0]()
+
+    replay = run
+
+    def save(self):
+        return None
+
+    def restore(self, saved) -> None:
+        pass
+
+
 @torch.no_grad()
 def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536) -> dict:
     """Per-stage times on a probe wavefront of camera rays, each stage run
@@ -147,9 +170,13 @@ def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536) -
                 shadow rays) + BSDF continuation
 
     Results land in the module profiler under ``stage/*`` targets and are
-    returned as {stage: seconds} (the least of three runs after a warm-up;
-    CUDA events on a CUDA scene, the host clock on the CPU)."""
-    from . import camera as camera_mod, intersect
+    returned as {stage: seconds}. On a CUDA scene each stage is captured
+    once as a CUDA graph (after an eager warm-up under the sync check; a
+    stage that fails to capture raises) and timed as the least of three
+    replays after one more, with CUDA events: the reference's least of
+    three runs after a compile. On the CPU each stage runs eagerly, timed
+    on the host clock."""
+    from . import camera as camera_mod, graphs, intersect
     from .integrators import make_integrator
     from .ops import rng as rng_mod
     from .render import _context, _continue, _lane_ids, _pixel_jitter, _shade, _streams_for
@@ -188,7 +215,8 @@ def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536) -
     n = int(o.shape[0])
     for name, fn in (("raycast", stage_raycast), ("surface", stage_surface),
                      ("bounce", stage_bounce)):
-        best = _best_seconds(fn, dev)
+        unit = graphs.staged_unit(_StageBody(name, fn, o))
+        best = _best_seconds(lambda: unit.replay(name), dev)
         out[name] = best
         profiler.add_sample(f"stage/{name}", best)
         profiler.add_sample(f"stage/{name}_mrays", n / best / 1e6)

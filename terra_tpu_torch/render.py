@@ -77,6 +77,9 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions, leaf_of=None):
     # so no graph is recorded over them
     corners = [c.detach() for c in scene.geometry.corners()]
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
+        if not pallas_traverse.supported(scene.bvh):  # the reference's kernel choice
+            raise ValueError("the traversal kernels cannot walk this tree "
+                             "(pallas_traverse.supported)")
         tables = pallas_traverse.pack_tables_auto(scene.bvh, *corners)
         if leaf_of is None:
             leaf_of = traverse.leaf_of_tri_table(scene.bvh)

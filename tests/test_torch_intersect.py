@@ -103,3 +103,68 @@ def test_raycast_brute_matches_reference(tris, n, seed, ray_chunk, tri_block, al
                                      algo)):
         k = other.t.shape[0]
         assert torch.equal(other.t, got.t[:k]) and torch.equal(other.tri, got.tri[:k])
+
+
+@pytest.mark.parametrize("shape", ["flat", "packets"])
+@pytest.mark.parametrize("algo", ["mt", "watertight"])
+def test_grid_helpers_match_reference(algo, shape):
+    """``mt_grid_components`` and ``_closest_hit_block`` against
+    terra_tpu.intersect's: the (rays x triangles) grid as brute force calls
+    it (``flat``: (N, 3) against (TB, 3)) and as the packet walk does
+    (``packets``: (P2, P, 3) against (P2, L, 3)); valid exactly, t within
+    RTOL where valid. Every triangle is there twice, so each hit ties, and
+    the first index at the least t wins, as in the reference."""
+    ts = ttt.scenes.random_triangles(48, seed=9, device="cpu")
+    tris = [np.concatenate([x.numpy()] * 2) for x in ts.geometry.corners()]
+    o, _ = _rays(256, 13)
+    aim = sum(tris)[np.arange(256) % 48] / 3 - o  # each ray at a triangle's centroid
+    d = (aim / np.linalg.norm(aim, axis=-1, keepdims=True)).astype(np.float32)
+    if shape == "packets":
+        o, d = o.reshape(4, 64, 3), d.reshape(4, 64, 3)
+        tris = [np.stack([x[:48], x[48:], x[:48], x[48:]]) for x in tris]
+    ref, got = _both(lambda *a: jint.mt_grid_components(*a, algo=algo),
+                     lambda *a: tint.mt_grid_components(*a, algo=algo), o, d, *tris)
+    np.testing.assert_array_equal(got[0], ref[0])
+    assert got[0].shape == ((256, 96) if shape == "flat" else (4, 64, 48))
+    np.testing.assert_allclose(np.where(got[0], got[1], 0), np.where(ref[0], ref[1], 0),
+                               rtol=RTOL)
+    if shape == "flat":
+        ref, got = _both(lambda *a: jint._closest_hit_block(*a, jnp.int32(1000), algo=algo),
+                         lambda *a: tint._closest_hit_block(*a, 1000, algo=algo), o, d, *tris)
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_allclose(got[0], ref[0], rtol=RTOL)
+        hit = got[0] < tint.T_FAR
+        assert hit.sum() > 200 and (got[1][hit] < 1048).all() and got[1].dtype == np.int32
+
+
+def test_table_choice_supports_every_test_tree(monkeypatch):
+    """``fits_smem`` and ``supported`` answer true for every tree, as the
+    reference's do for these: the paged tables stage at most
+    ``PAGED_SMEM_BUDGET`` per block, the others nothing. ``make_raycast_fn``
+    consults ``supported`` and raises for a tree it refused."""
+    import importlib
+
+    from terra_tpu.accel import pallas_traverse as jpt
+    from terra_tpu_torch.accel import pallas_traverse as tpt
+
+    trender = importlib.import_module("terra_tpu_torch.render")
+
+    assert tpt.SMEM_NODE_BUDGET == tpt.MAX_BLOCK_SMEM >= tpt.PAGED_SMEM_BUDGET
+    trees = []
+    for n in (33, 700, 3000):
+        js = jscenes.random_triangles(n, seed=n, accelerator=jscenes.Accelerator.BVH)
+        ts = ttt.scenes.random_triangles(n, seed=n, device="cpu",
+                                         accelerator=ttt.Accelerator.BVH)
+        trees.append(ts.bvh)
+        assert jpt.fits_smem(js.bvh) and jpt.supported(js.bvh)
+    trees.append(ttt.scenes.courtyard(grid=40, columns=8, device="cpu").bvh)
+    for bvh in trees:
+        assert tpt.fits_smem(bvh) and tpt.supported(bvh)
+    monkeypatch.setattr(tpt, "NODE_TABLE_BUDGET", 1)  # every tree takes the paged tables
+    for bvh in trees[1:]:
+        assert tpt.wide_mode(bvh) == "paged" and tpt.fits_smem(bvh) and tpt.supported(bvh)
+    monkeypatch.setattr(tpt, "supported", lambda bvh: False)
+    scene = ttt.scenes.random_triangles(700, seed=700, device="cpu",
+                                        accelerator=ttt.Accelerator.BVH)
+    with pytest.raises(ValueError, match="supported"):
+        trender.make_raycast_fn(scene, ttt.RenderOptions(width=4, height=4))
