@@ -185,7 +185,24 @@ exits non-zero (there is no CPU fallback):
      the BVH4 hits on its first ray batch equal to a fresh pack of a fresh
      refit, ms per step with the graphs' stages (CUDA events) and the
      refit, peak memory and pool, the fifth backward's kernels by name
-     (the profiler); 10d (in phase 8's ranks) the sharded step at (2, 2),
+     (the profiler), and an eager backward at the recovered state under
+     the profiler with ``record_shapes``: its index accumulates and
+     matrix products by input shape (which tables cost what; a replay
+     records no op shapes), with ``scripts/backward_profile.py``'s
+     helpers; 10f the small-table fetches by one-hot product
+     (``ops/onehot.py``): with TF32 allowed (``allow_tf32``,
+     ``set_float32_matmul_precision("high")``), ``fetch_rows`` and
+     ``_oh_pick`` on the courtyard's material and light tables and a
+     random 512 x 26 table at 6c's lanes equal the plain gather word for
+     word (its -0.0 read as +0.0) and their gradients equal those taken
+     with TF32 off, the flags restored after; two graphed courtyard
+     steps from the same state give gradients equal bit for bit to each
+     other and to ``value_and_grad``'s, with the
+     ``CUBLAS_WORKSPACE_CONFIG`` in force printed; the graphed 3b, sky
+     and 3g renders with the one-hot fetches against the same renders
+     and config 4's graphed step with gathers, in turns (host clock,
+     kernel time, pool bytes and peak allocation above the held base;
+     films equal word for word); 10d (in phase 8's ranks) the sharded step at (2, 2),
      grad_chunks 2, on 4 gloo ranks and at (1, 1) on one NCCL rank against
      the same bodies run uncaptured: gradients and the parameters after 2
      Adam steps bit for bit, ms per step per rank; 10e a host read planted
@@ -220,6 +237,7 @@ operations over the 67 TFLOP/s f32 peak; the traversal kernels add
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2867,6 +2885,17 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
           f"kernels, {busy:.1f} ms of kernel time; by name:", flush=True)
     for name, ms, count in profiled[:12]:
         print(f"    {ms:8.2f} ms  x{count:<6d} {name[:120]}", flush=True)
+    # a replay records no op shapes: the attribution by table takes an eager
+    # backward at the recovered state (same ops, same kernels)
+    from terra_tpu_torch.scripts import backward_profile
+
+    by_shape = backward_profile.profile_backward(
+        optim.make_loss_fn(cam, opts, target),
+        optim._trainable(optim.extract_params(recovered, FIELDS_6C)), recovered,
+        rng.key_from_seed(7), 0)
+    print(f"  an eager backward at the recovered state: {by_shape['backward_ms']:.1f} ms (host "
+          f"clock)", flush=True)
+    backward_profile.print_profile(by_shape, indent="    ")
     ok = len(captures) == 1 and tables_equal and hits_equal and moved and \
         (all(same_steps) or rel <= 2e-3) and all(np.isfinite(losses))
     if not ok:
@@ -2878,7 +2907,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
                       "stage_ms_by_step": dict(by_step), "refit_ms": refit_ms,
                       "peak_gib": peak / 2**30, "pool_bytes": unit["pool_bytes"],
                       "warmup_s": unit["warmup_s"], "capture_s": unit["capture_s"],
-                      "backward_kernels": profiled[:12]}
+                      "backward_kernels": profiled[:12], "by_shape": by_shape}
 
 
 def _phase10e(torch, ttt, dev):
@@ -2911,6 +2940,211 @@ def _phase10e(torch, ttt, dev):
     return raised
 
 
+def _phase10f(torch, ttt, pt, scene, cam):
+    """Phase 10f: the small-table fetches by one-hot product
+    (``ops/onehot.py``). The TF32 gate: with ``allow_tf32`` set and
+    ``set_float32_matmul_precision("high")``, ``surface.fetch_rows`` and
+    ``distributions._oh_pick`` on the courtyard's material (4 x 29) and
+    light (4 x 30) tables and a random 512 x 26 table, at 6c's lanes (ids
+    in range, seeded), equal the plain gather word for word (its -0.0 read
+    as +0.0, ``table[idx] + 0.0``, the product's one difference), and the
+    gradients of sum(w * fetch) equal those taken with the flags off; the
+    unguarded product under the same flags is counted beside them (the
+    words TF32 would move); the flags are restored after. Each fetch and
+    its backward timed beside the gather and its index accumulate (CUDA
+    events, deterministic mode). The reproducibility gate: phase 6c's
+    graphed step from its start, twice from the same state (the update
+    replay skipped, so the parameters stay): gradients bit-equal to each
+    other and to ``value_and_grad``'s at that state. Returns (launches of
+    the main path, results)."""
+    import warnings
+
+    from terra_tpu_torch import graphs, optim, surface
+    from terra_tpu_torch.ops import distributions, onehot, rng
+
+    dev = scene.geometry.positions.device
+    n = 384 * 384 * 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shade = surface.build_shade_tables(scene)
+    tables = {"material": shade.mat.detach(), "light": shade.light.detach(),
+              "random 512x26": torch.randn(512, 26, device=dev, generator=gen)}
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    rows, ok = {}, True
+    for label, table in tables.items():
+        idx = torch.randint(0, table.shape[0], (n,), device=dev, generator=gen)
+        w = torch.randn(n, table.shape[1], device=dev, generator=gen)
+        plain = table[idx] + 0.0
+
+        def grad(fetch):
+            t = table.clone().requires_grad_(True)
+            with optim.deterministic():
+                (g,) = torch.autograd.grad(torch.sum(w * fetch(t, idx)), [t])
+            return g
+
+        fetches = {"fetch_rows": surface.fetch_rows, "_oh_pick": distributions._oh_pick}
+        grads_off = {k: grad(f) for k, f in fetches.items()}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            oh = onehot.one_hot(idx, table.shape[0])
+            unguarded = _tensor_words(torch, oh @ table, plain)
+            words = {k: _tensor_words(torch, f(table, idx), plain) for k, f in fetches.items()}
+            grad_words = {k: _tensor_words(torch, grad(f), grads_off[k]) for k, f in fetches.items()}
+            flags_on = (torch.backends.cuda.matmul.allow_tf32,
+                        torch.get_float32_matmul_precision())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.set_float32_matmul_precision(prev[1])
+        g = torch.randn(n, table.shape[1], device=dev, generator=gen)
+
+        def product_backward():
+            with onehot.full_f32():
+                return oh.mT @ g
+
+        with optim.deterministic():
+            times = {
+                "product": _ms(torch, lambda: surface.fetch_rows(table, idx), 20),
+                "gather": _ms(torch, lambda: table[idx], 20),
+                "product backward": _ms(torch, product_backward, 20),
+                "index accumulate": _ms(torch, lambda: torch.zeros_like(table).index_put_(
+                    (idx,), g, accumulate=True), 5),
+            }
+        rows[label] = {"words": words, "grad_words": grad_words, "unguarded_words": unguarded,
+                       "ms": times}
+        ok &= not any(words.values()) and not any(grad_words.values())
+        print(f"phase 10f: {label} table {tuple(table.shape)}, {n} lanes, flags on "
+              f"{flags_on}: words differing from the plain gather {words}, gradient words "
+              f"differing from the flags-off gradient {grad_words}; the unguarded product "
+              f"under the flags {unguarded} words; ms (CUDA events) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    restored = (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision()) == prev
+    # two graphed steps from the same state, and value_and_grad there
+    opts = _opts_6c(ttt)
+    key = rng.key_from_seed(7)
+    with torch.no_grad():
+        target = optim.render_mean_image(scene, cam, opts, key, 0, 8)
+    start = _start_6c(torch, optim, scene)
+    grads, real = [], graphs.TrainUnit.replay
+
+    def replay(self, stage):
+        if stage == "update":
+            return None
+        out = real(self, stage)
+        if stage == "backward":
+            grads.append([x.detach().clone() for x in out])
+        return out
+
+    graphs.clear()
+    step = optim.make_train_step(cam, opts, target, functools.partial(torch.optim.Adam, lr=3e-2))
+    pt.launches = pt.launches4 = 0
+    with mock.patch.object(graphs.TrainUnit, "replay", replay), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        s1, loss1 = step(optim.TrainState(optim.extract_params(start, FIELDS_6C), None, 0),
+                         start, key)
+        _, loss2 = step(optim.TrainState(s1.params, s1.opt_state, 0), start, key)
+        torch.cuda.synchronize()
+        launches = {"binary": pt.launches, "bvh4": pt.launches4}
+        loss_e, grads_e = optim.value_and_grad(
+            optim.make_loss_fn(cam, opts, target),
+            optim._trainable(optim.extract_params(start, FIELDS_6C)), start, key, 0)
+    captured = len(graphs.units())
+    same = [all(_same_bits(a, b) for a, b in zip(grads[0], other)) for other in (grads[1], grads_e)]
+    same_loss = _same_bits(loss1, loss2) and _same_bits(loss1, loss_e)
+    notes = sorted({str(w.message).split(".")[0][:160] for w in caught})
+    print(f"phase 10f: the flags restored {restored}; phase 6c's graphed step twice from its "
+          f"start (CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}): units "
+          f"{captured}, losses {float(loss1):.6e} {float(loss2):.6e}, gradients bit-equal to each "
+          f"other {same[0]}, to value_and_grad's {same[1]}, losses equal {same_loss}; launches "
+          f"binary {launches['binary']} bvh4 {launches['bvh4']}; warnings {notes}", flush=True)
+    graphs.clear()
+    if not (ok and restored and all(same) and same_loss and captured == 1):
+        raise AssertionError("phase 10f failed a gate")
+    return launches, {"tables": rows, "bit_equal": same, "warnings": notes}
+
+
+def _fetch_ab(torch, ttt, cells, dev):
+    """Phase 10f's A/B: each cell's graphed render, and config 4's graphed
+    step (``_config4``), with the one-hot fetches and with them patched to
+    the gathers the port used before (``fetch_rows``, ``_oh_pick``,
+    ``_oh_at``), in turns (P G G P), each turn captured anew. A render:
+    host-clock median of 3, the kernel time of one more under the
+    profiler, its unit's pool bytes and one render's peak allocation above
+    what the process held before it; films must be equal word for word.
+    The step: host-clock median of 10 after the capturing one, pool bytes
+    and one step's peak above the base. Returns {cell: {variant: [row per
+    turn]}}."""
+    from terra_tpu_torch import graphs, lights, optim, surface
+    from terra_tpu_torch.ops import distributions
+
+    def gather(table, idx):
+        return table[idx.long()]
+
+    def at(rows, idx):
+        return torch.take_along_dim(rows, idx.long()[..., None], -1)[..., 0]
+
+    def timed(fn):
+        """(seconds, result, peak bytes above the base) of ``fn()``."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, r, torch.cuda.max_memory_allocated() - base
+
+    gathers = {(surface, "fetch_rows"): gather, (lights, "fetch_rows"): gather,
+               (distributions, "_oh_pick"): gather, (distributions, "_oh_at"): at}
+    c4 = _config4(torch, ttt, dev)
+    labels = [c[0] for c in cells] + ["config 4 step"]
+    out = {label: {"product": [], "gather": []} for label in labels}
+    films = {}
+    for turn in ("product", "gather", "gather", "product"):
+        graphs.clear()
+        with contextlib.ExitStack() as stack:
+            if turn == "gather":
+                for (mod, name), fn in gathers.items():
+                    stack.enter_context(mock.patch.object(mod, name, fn))
+            for label, scene, cam, opts in cells:
+                def render():
+                    return ttt.render(scene, cam, opts, seed=0)
+
+                films[(label, turn)] = render().acc.clone()  # captures
+                secs = float(np.median([timed(render)[0] for _ in range(3)]))
+                peak = timed(render)[2]
+                pool = graphs.units()[-1]["pool_bytes"]
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    render()
+                    torch.cuda.synchronize()
+                busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+                out[label][turn].append({"s": secs, "kernel_ms": busy, "pool_bytes": pool,
+                                         "peak_bytes": peak})
+            scene4, cam4, opts4, target4, key4 = c4
+            step = optim.make_train_step(cam4, opts4, target4,
+                                         functools.partial(torch.optim.Adam, lr=3e-2))
+            state = step(optim.TrainState(optim.extract_params(scene4, ("attrs",)), None, 0),
+                         scene4, key4)[0]
+            ms = [timed(lambda: step(state, scene4, key4))[0] * 1e3 for _ in range(10)]
+            peak = timed(lambda: step(state, scene4, key4))[2]
+            out["config 4 step"][turn].append({"ms": float(np.median(ms)), "peak_bytes": peak,
+                                               "pool_bytes": graphs.units()[-1]["pool_bytes"]})
+    graphs.clear()
+    mib = 2**20
+    for label in labels:
+        rows = {v: [", ".join(f"{k} {x / mib:.1f} MiB" if k.endswith("bytes") else f"{k} {x:.4f}"
+                              for k, x in r.items()) for r in out[label][v]] for v in out[label]}
+        w = _tensor_words(torch, films[(label, "product")], films[(label, "gather")]) \
+            if (label, "product") in films else 0
+        print(f"phase 10f: {label} graphed, one-hot fetches against gathers in turns (P G G P): "
+              f"product {rows['product']}; gather {rows['gather']}"
+              + ("" if label == "config 4 step" else f"; films differ in {w} words"), flush=True)
+        if w:
+            raise AssertionError(f"phase 10f: the {label} film depends on the fetch")
+    return out
+
+
 TWIN_TABLES = {
     "binary": lambda pt: pt.pack_tables,
     "f32": lambda pt: lambda bvh, *c: pt.pack_tables_wide(bvh, *c, box_enc="f32"),
@@ -2933,7 +3167,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import terra_tpu_torch as ttt
+    import terra_tpu_torch as ttt  # sets CUBLAS_WORKSPACE_CONFIG before any cuBLAS call
+    print(f"phase 0: CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}",
+          flush=True)
     from terra_tpu_torch import _build, graphs, intersect, native, probes
     from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.accel import traverse
@@ -3217,6 +3453,11 @@ def main() -> None:
     launches10c, train10["10c"] = _phase10c(torch, ttt, pt, scene, cam, inverse["6c"])
     main_launches.update(launches10c)
     _phase10e(torch, ttt, dev)
+    launches10f, train10["10f"] = _phase10f(torch, ttt, pt, scene, cam)
+    main_launches.update(launches10f)
+    train10["10f"]["ab"] = _fetch_ab(torch, ttt, [("3b", scene, cam, opts),
+                                                   ("sky", sky, cam, s_opts),
+                                                   ("3g", g_scene, g_cam, g_opts)], dev)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s; every capture's warm-up ran under "
           f"torch.cuda.set_sync_debug_mode('error') and deterministic algorithms", flush=True)
 

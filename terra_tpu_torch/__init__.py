@@ -18,7 +18,17 @@ body by name.
                       samples_per_pixel=8, bounces=2,
                       integrator=ttt.Integrator.DIRECT))
     image = ttt.develop(film)
+
+Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` to ``:4096:8``
+unless the process has its own: cuBLAS repeats a product's bits only with
+a fixed workspace configuration, read when the process makes its first
+cuBLAS call, and the training backward's small-table products
+(``ops/onehot.py``) run in PyTorch's deterministic mode
+(``optim.deterministic``).
 """
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from .scene import (  # noqa: F401
     ATTR, Accelerator, BSDFType, Camera, Geometry, Integrator, Intersector, LightPick,

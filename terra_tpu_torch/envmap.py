@@ -7,8 +7,10 @@ floor so the pdf is positive everywhere), :func:`sample` draws directions
 from it and :func:`pdf` evaluates the solid-angle density of any
 direction, for next-event estimation of the environment with MIS against
 the BSDF strategy. The mapping is :func:`textures.sample_latlong`'s, so
-sampled directions, their radiance and their pdf agree. The pdf's table
-fetch is a plain gather (the reference's is a one-hot product).
+sampled directions, their radiance and their pdf agree. The pdf fetches
+its grid entry in the reference's two stages: the row by one-hot product,
+the column by one-hot multiply-reduce (``distributions._oh_pick``,
+``_oh_at``).
 """
 from __future__ import annotations
 
@@ -86,6 +88,7 @@ def pdf(dist: distributions.Distribution2D, wi):
     col = torch.clamp((u * GRID_W).to(torch.int64), 0, GRID_W - 1)
     row = torch.clamp((v * GRID_H).to(torch.int64), 0, GRID_H - 1)
     total = torch.clamp(dist.marginal.integral, min=1e-20)
-    density_uv = dist.conditionals.f[row, col] * float(GRID_W * GRID_H) / total
+    f_at = distributions._oh_at(distributions._oh_pick(dist.conditionals.f, row), col)
+    density_uv = f_at * float(GRID_W * GRID_H) / total
     sin_t = torch.clamp(torch.sin(theta), min=1e-6)
     return density_uv / (TWO_PI2 * sin_t)

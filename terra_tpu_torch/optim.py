@@ -152,7 +152,10 @@ def deterministic():
     """PyTorch's deterministic algorithms for the block (warning, not
     raising, where an op has none), restored after: a gradient step's
     index backwards then sum in a fixed order on the card, so two steps
-    from the same state give the same bits."""
+    from the same state give the same bits. The small tables' one-hot
+    products (``ops/onehot.py``) are cuBLAS products, which repeat their
+    bits with the ``CUBLAS_WORKSPACE_CONFIG`` that importing the package
+    sets before the first cuBLAS call (else PyTorch warns here)."""
     prev, prev_warn = (torch.are_deterministic_algorithms_enabled(),
                        torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)

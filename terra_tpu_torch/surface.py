@@ -5,10 +5,10 @@ distance, position, barycentrics, normal, uv, material attributes) is
 recomputed here from the vertex data, differentiably, so gradients reach
 the positions, attributes, emission and textures. All per-triangle,
 per-material and per-light data is packed into row tables built once per
-trace, and each lane fetches one row with a plain index gather. (The JAX
-package fetches small tables by a one-hot matmul for the TPU's matrix
-unit; under TF32 that would quantize the table values, so the port never
-does.)
+trace, and each lane fetches one row by :func:`fetch_rows`, the
+reference's rule: a table of at most ``ONEHOT_MAX_ROWS`` rows by a
+one-hot product in full f32 (``ops/onehot.py``; its backward a product,
+not an index accumulate), a larger one by an index gather.
 """
 from __future__ import annotations
 
@@ -17,10 +17,14 @@ from dataclasses import dataclass
 import torch
 
 from . import textures
-from .ops import math3
+from .ops import math3, onehot
 from .scene import MAX_ATTRS, Scene
 
-__all__ = ["Surface", "ShadeTables", "build_shade_tables", "fetch_rows", "surface_init"]
+__all__ = ["Surface", "ShadeTables", "build_shade_tables", "fetch_rows", "surface_init",
+           "ONEHOT_MAX_ROWS"]
+
+# the most rows a table fetched by one-hot product has; larger ones are gathered
+ONEHOT_MAX_ROWS = onehot.MAX_ROWS
 
 
 @dataclass
@@ -65,8 +69,10 @@ def build_shade_tables(scene: Scene) -> ShadeTables:
 
 
 def fetch_rows(table, idx):
-    """One row per lane: a plain index gather (idx in range)."""
-    return table[idx.long()]
+    """One row per lane. At most ``ONEHOT_MAX_ROWS`` rows: the one-hot
+    product (an id out of range gives a zero row, -0.0 comes back +0.0);
+    more: an index gather (ids must be in range)."""
+    return onehot.pick(table, idx)
 
 
 @dataclass
