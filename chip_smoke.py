@@ -92,8 +92,13 @@ exits non-zero (there is no CPU fallback):
      integrators, under the reference tests' budgets;
   5. the pattern probes: each of the eleven bodies through its
      ``terra_tpu_torch.scripts`` entry point on the card (it must print OK),
-     held word for word against its plain PyTorch version on the same input;
-     kernel and plain times (CUDA events, mean of 200 runs after a warm-up);
+     held word for word against its plain PyTorch version on the same input,
+     and each body of the paged and row-mask kernels also on 8 seeded
+     inputs (0 differing words); each kernel's device time (CUDA events over
+     200 launches back to back behind a sleep backlog), its time at the
+     host's launch rate (``host_ms``), the plain version's, and the launch
+     floor (an empty kernel of the probes' launch shape, timed the same
+     way); the kernels ranked by launches x (device ms - bound);
   6. inverse rendering (``optim.py`` on torch autograd): 6a bench config 4
      (the blockless Cornell box by brute force, 32x32, 8 spp, 2 bounces,
      DIRECT, Adam 3e-2 on attrs from a wall albedo of [0.3, 0.5, 0.6]; one
@@ -1303,14 +1308,27 @@ PROBE_ENTRIES = {  # body -> (module, function) of its terra_tpu_torch.scripts e
 }
 
 
+SEEDED_PROBES = 8  # seeded inputs each body of the paged and row-mask kernels is held to
+
+
 def _probe_phase(torch):
-    """Phase 5. Returns {kernel: {"launches", "max_abs_err", "ms", "plain_ms",
-    "bound_ms", "bound_by", "replaces", "bodies"}}; a kernel serving
-    several bodies reports its slowest body's times."""
+    """Phase 5. Returns {kernel: {"launches", "max_abs_err", "ms", "host_ms",
+    "floor_ms", "plain_ms", "bound_ms", "bound_by", "replaces", "bodies"}}:
+    ``ms`` the device time (200 launches back to back behind a sleep
+    backlog), ``host_ms`` the time of a ``probes.run`` call at the host's
+    launch rate, ``floor_ms`` the empty kernel's device time; a kernel
+    serving several bodies reports its slowest body's times. The paged and
+    row-mask kernels are also held to the plain version on
+    ``SEEDED_PROBES`` seeded inputs a body."""
     import importlib
 
     from terra_tpu_torch import probes
 
+    x0 = probes.make_input("paged/probe1", "cuda")
+    floor_ms = _ms(torch, lambda: probes.run_floor(x0), 200, backlog=True)
+    floor_host_ms = _ms(torch, lambda: probes.run_floor(x0), 200)
+    print(f"phase 5: launch floor ({probes.FLOOR}: one block of 256 threads, no work): device "
+          f"{floor_ms:.5f} ms, host rate {floor_host_ms:.5f} ms", flush=True)
     out = {}
     for name, (module, fn) in PROBE_ENTRIES.items():
         body = probes.BODIES[name]
@@ -1323,21 +1341,37 @@ def _probe_phase(torch):
         plain = probes.run_plain(name, x)
         words = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
         err = float((got.double() - plain.double()).abs().max())
-        kernel_ms = _ms(torch, lambda: probes.run(name, x), 200)
+        seeded = []
+        if body.kernel in ("rowmask_patterns", "paged_patterns"):
+            for seed in range(SEEDED_PROBES):
+                xs = probes.seeded_input(name, seed, "cuda")
+                got_s, plain_s = probes.launch(name, xs), probes.run_plain(name, xs)
+                seeded.append(int((got_s.view(torch.int32) != plain_s.view(torch.int32)).sum()))
+                err = max(err, float((got_s.double() - plain_s.double()).abs().max()))
+        kernel_ms = _ms(torch, lambda: probes.run(name, x), 200, backlog=True)
+        host_ms = _ms(torch, lambda: probes.run(name, x), 200)
         plain_ms = _ms(torch, lambda: probes.run_plain(name, x), 200)
         bound_ms, bound_by = _bound(body.staged_rows * probes.W * 4 + got.numel() * 4, body.ops)
         print(f"phase 5: {name} ({body.kernel}): OK {ok}, launches {n_launch}, words differing "
-              f"from the plain version {words}; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms * 1e6:.2f} ns ({bound_by})", flush=True)
-        if not ok or words or n_launch != 1:
+              f"from the plain version {words}"
+              + (f", on {len(seeded)} seeded inputs {seeded}" if seeded else "")
+              + f"; device {kernel_ms:.5f} ms (floor {floor_ms:.5f}), host rate {host_ms:.5f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e6:.2f} ns ({bound_by})",
+              flush=True)
+        if not ok or words or any(seeded) or n_launch != 1:
             raise AssertionError(f"probe {name} failed on the card")
         k = out.setdefault(body.kernel, {"launches": 0, "max_abs_err": 0.0, "ms": 0.0,
                                          "replaces": body.replaces, "bodies": {}})
         k["launches"] += n_launch
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        k["bodies"][name] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        k["bodies"][name] = {"ms": kernel_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms}
         if kernel_ms >= k["ms"]:
-            k.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            k.update(ms=kernel_ms, host_ms=host_ms, floor_ms=floor_ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+    print("phase 5: redesign rank, launches x (device ms - bound) in us: " + ", ".join(
+        f"{kernel} {gain * 1e3:.3f}" for kernel, gain in probes.redesign_rank(out)),
+        flush=True)
     return out
 
 

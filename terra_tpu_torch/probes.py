@@ -17,7 +17,11 @@ plain version for a CPU tensor; for a CUDA tensor it launches the kernel
 on the current stream, raises if the launch fails, and never falls back.
 :data:`launches` counts kernel launches. Every value involved is an
 integer below 2^24 (or 1e9 plus one), exact in f32, so kernel and plain
-version agree word for word.
+version agree word for word, on the reference's inputs (:func:`make_input`)
+and on seeded random ones (:func:`seeded_input`). :func:`run_floor`
+launches an empty kernel of the probes' launch shape, the floor a probe's
+device time is read against; :func:`redesign_rank` orders kernels by what
+a redesign could save on the path that launched them.
 """
 from __future__ import annotations
 
@@ -25,14 +29,16 @@ import ctypes
 import functools
 import os
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ._build import build_shared, nvcc
 
-__all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "make_input", "load_kernel",
-           "kernel_path", "launches", "ROWS", "W"]
+__all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "run_floor", "launch", "make_input",
+           "seeded_input", "load_kernel", "load_library", "kernel_path", "redesign_rank",
+           "launches", "ROWS", "W"]
 
 ROWS, W = 8, 128  # the (8, 128) output block of every probe
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "pattern_probes.cu")
@@ -199,23 +205,73 @@ def make_input(name: str, device="cuda") -> torch.Tensor:
     return x
 
 
+def seeded_input(name: str, seed: int, device="cuda") -> torch.Tensor:
+    """A random input for body ``name`` from ``numpy.random.default_rng(seed)``,
+    integer-valued so that every product and sum the body takes is exact in
+    f32 (below 2^24), whatever the order: rowmask probe 2 in (-2^11, 2^11);
+    rowmask probe 3 at most 700 but for 1-4 lanes above it in half the rows;
+    rowmask probe 4's rows reaching into each mask plane's threshold; paged
+    probe 4 with page links (row minima) of at most 4 and above 4 in every
+    input; the loop probe's trip count 0..130; else below 2^22."""
+    body = BODIES[name]
+    rng = np.random.default_rng(seed)
+    shape = (body.rows, W)
+    if name == "rowmask/probe2":
+        x = rng.integers(-2**11, 2**11, shape)
+    elif name == "rowmask/probe3":
+        x = rng.integers(0, 701, shape)
+        for r in np.flatnonzero(rng.permutation(ROWS) < ROWS // 2):
+            lanes = rng.choice(W, rng.integers(1, 5), replace=False)
+            x[r, lanes] = rng.integers(701, 1400, lanes.size)
+    elif name == "rowmask/probe4":
+        x = rng.integers(0, 600, shape)
+        for r in range(ROWS):
+            lanes = rng.choice(W, rng.integers(0, 4), replace=False)
+            x[r, lanes] = rng.integers(550, 900, lanes.size)
+    elif name == "paged/probe4":
+        x = rng.integers(0, 2**16, shape)
+        links = rng.permutation([rng.integers(-3, 5), rng.integers(5, 2**16),
+                                 rng.integers(-3, 2**16)])
+        for i, link in enumerate(links):
+            x[4 * i + 2] = link + rng.integers(0, 64, W)
+            x[4 * i + 2, rng.integers(W)] = link
+    else:
+        x = rng.integers(0, 2**22, shape)
+        if body.dtype == torch.int32:
+            x[0, 0] = rng.integers(0, W + 3)
+    return torch.as_tensor(x.astype(np.int32 if body.dtype == torch.int32 else np.float32),
+                           device=device)
+
+
 # ------------------------------------------------------------------ kernels
 
-def kernel_path() -> str:
-    """Path of the built probe library (builds it if needed)."""
-    return build_shared([nvcc(), *NVCC_FLAGS], [SRC], "pattern_probes")
+# The launch floor: an empty kernel of the probes' launch shape.
+FLOOR = "terra_probe_empty"
+
+
+def kernel_path(defines=()) -> str:
+    """Path of the built probe library (builds it if needed); ``defines``
+    (``NAME=VALUE``) set the source's build-time knobs."""
+    return build_shared([nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)], [SRC],
+                        "pattern_probes")
+
+
+def load_library(path: str) -> ctypes.CDLL:
+    """Load a built probe library and declare its launchers."""
+    lib = ctypes.CDLL(path)
+    p = ctypes.c_void_p
+    for fn, numbered in [*KERNELS.values(), (FLOOR, False)]:
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.restype = ctypes.c_int
+            f.argtypes = [p, p, ctypes.c_int, p] if numbered else [p, p, p]
+    return lib
 
 
 @functools.cache
 def load_kernel() -> ctypes.CDLL:
     """Build ``csrc/pattern_probes.cu`` (once per source/flag hash) and load it."""
-    lib = ctypes.CDLL(kernel_path())
-    p = ctypes.c_void_p
-    for fn, numbered in KERNELS.values():
-        f = getattr(lib, fn)
-        f.restype = ctypes.c_int
-        f.argtypes = [p, p, ctypes.c_int, p] if numbered else [p, p, p]
-    return lib
+    return load_library(kernel_path())
 
 
 def _check(body: Body, x: torch.Tensor):
@@ -231,6 +287,31 @@ def run_plain(name: str, x: torch.Tensor) -> torch.Tensor:
     return body.plain(x)
 
 
+def _launch(lib: ctypes.CDLL, fn: str, probe, x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty((ROWS, W), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), out.data_ptr(), *(() if probe is None else (probe,)), stream)
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
+    return out
+
+
+def launch(name: str, x: torch.Tensor, lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """Body ``name``'s kernel from ``lib`` (default: :func:`load_kernel`) on
+    the CUDA tensor ``x``, not counted in :data:`launches` (for A/Bs of
+    other builds)."""
+    body = BODIES[name]
+    _check(body, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{body.kernel} kernel runs on cuda tensors, got {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{body.kernel} needs a contiguous, 16-byte-aligned input (the bulk "
+                         f"copy's rule)")
+    fn, numbered = KERNELS[body.kernel]
+    return _launch(lib or load_kernel(), fn, body.probe if numbered else None, x)
+
+
 def run(name: str, x: torch.Tensor) -> torch.Tensor:
     """Body ``name`` of :data:`BODIES` on ``x``: the plain version for a
     CPU tensor, the kernel for a CUDA tensor. Returns the (8, 128) output
@@ -240,17 +321,24 @@ def run(name: str, x: torch.Tensor) -> torch.Tensor:
     _check(body, x)
     if x.device.type == "cpu":
         return body.plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"{body.kernel} runs on cpu or cuda tensors, got {x.device}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{body.kernel} needs a contiguous, 16-byte-aligned input (the bulk "
-                         f"copy's rule)")
-    fn, numbered = KERNELS[body.kernel]
-    out = torch.empty((ROWS, W), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), out.data_ptr(), *((body.probe,) if numbered else ()), stream)
-    rc = getattr(load_kernel(), fn)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{body.kernel} launch failed: cudaError {rc}")
+    out = launch(name, x)
     launches += 1
     return out
+
+
+def run_floor(x: torch.Tensor, lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """The empty kernel (one block of 256 threads, no work) launched on
+    ``x``'s card as :func:`run` launches a probe, output allocated and
+    left unwritten: the launch floor. Not counted in :data:`launches`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the launch floor runs on cuda tensors, got {x.device}")
+    return _launch(lib or load_kernel(), FLOOR, None, x)
+
+
+def redesign_rank(rows: dict) -> list:
+    """[(kernel, launches x (ms - bound_ms)), ...] from ``{kernel:
+    {"launches", "ms", "bound_ms"}}``, largest first: the device time a
+    redesign could save on the run that launched them. A kernel at or below
+    its bound has nothing to save and is left out."""
+    gain = {k: r["launches"] * (r["ms"] - r["bound_ms"]) for k, r in rows.items()}
+    return sorted(((k, g) for k, g in gain.items() if g > 0), key=lambda kg: -kg[1])

@@ -2,9 +2,10 @@
 
 The port of ``scripts/paged_patterns_probe.py``: the same four probes,
 inputs, expectations and printed lines, on the paged-pattern kernel of
-``csrc/pattern_probes.cu``. Each runs three iterations of a loop that
-bulk-copies rows 4i..4i+3 of a (16, 128) f32 input into shared memory,
-waits on the mbarrier's phase and then adds
+``csrc/pattern_probes.cu``. Each runs three iterations of a loop over
+the pages of a (16, 128) f32 input (rows 4i..4i+3); inside the loop the
+kernel keeps a ring of page buffers filled by bulk copies, one mbarrier
+each, waits on page i's barrier and then adds
 
   1: the min of row 1 (a warp reduction);
   2: the scalar scr[1, 3];

@@ -3,11 +3,13 @@
 The port of ``scripts/rowmask_patterns_probe.py``: the same four probes,
 inputs, expectations and printed lines, on the kernels of
 ``csrc/pattern_probes.cu``. Rows 0-7 of a (16, 128) f32 arange are staged
-into shared memory by a bulk copy, then:
+into shared memory by bulk copies (probes 1 and 3: each warp its own row
+on its own mbarrier), then:
 
-  1: per-row stores under a bit test (bits 0b10100110), output zeroed first;
+  1: per-row stores, the row's bit (of 0b10100110) selecting 2 x[r] or 0;
   2: (8,1) column x (1,128) row tile math, min over the column -> row r;
-  3: row-activity bits (any lane > 700) from warp votes, driving row stores;
+  3: row-activity bits (any lane > 700) from each row's warp vote, selecting
+     the row's value;
   4: three mask planes stored into shared scratch in a loop, then a drain
      that adds each plane's rows that have a lane below 1e9.
 

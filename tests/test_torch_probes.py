@@ -1,12 +1,15 @@
 """The port's probe bodies (plain PyTorch versions, as the wrappers run
 them on CPU tensors) against the reference's Pallas probes run in
-interpret mode: the same (8, 128) output, word for word."""
+interpret mode: the same (8, 128) output, word for word, on the
+reference's own inputs and on seeded random ones."""
 import importlib.util
 import pathlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.experimental import pallas as pl
 
 from terra_tpu_torch import probes
@@ -41,9 +44,10 @@ def test_every_body_has_a_case():
     assert len({b.kernel for b in probes.BODIES.values()}) == len(probes.KERNELS) == 6
 
 
-@pytest.mark.parametrize("body", list(CASES))
-def test_probe_matches_pallas_interpret(body, monkeypatch):
-    script, fn, port_fn = CASES[body]
+def _reference_output(body, monkeypatch, x=None):
+    """The output of the reference's probe for ``body``, its pallas_call run
+    in interpret mode, on its own input or (``x``, numpy) on ``x``."""
+    script, fn, _ = CASES[body]
     recorded = []
     pallas_call = pl.pallas_call
 
@@ -51,7 +55,7 @@ def test_probe_matches_pallas_interpret(body, monkeypatch):
         call = pallas_call(*args, **dict(kw, interpret=True))
 
         def run(*xs):
-            out = call(*xs)
+            out = call(*(xs if x is None else (jnp.asarray(x),)))
             recorded.append(np.asarray(out))
             return out
         return run
@@ -60,8 +64,13 @@ def test_probe_matches_pallas_interpret(body, monkeypatch):
     with jax.default_device(jax.devices("cpu")[0]):
         getattr(_reference_script(script), fn)()
     assert len(recorded) == 1
-    ref = recorded[0]
-    out, ok = port_fn(device="cpu")
+    return recorded[0]
+
+
+@pytest.mark.parametrize("body", list(CASES))
+def test_probe_matches_pallas_interpret(body, monkeypatch):
+    ref = _reference_output(body, monkeypatch)
+    out, ok = CASES[body][2](device="cpu")
     got = out.numpy()
     assert ok
     assert got.dtype == ref.dtype and got.shape == ref.shape == (8, 128)
@@ -77,3 +86,50 @@ def test_wrapper_refuses_wrong_input(bad):
         x = x[:8]
     with pytest.raises(ValueError):
         probes.run("smem_dma/hbm_to_smem", x)
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("body", [b for b in CASES if b.startswith(("rowmask/", "paged/"))])
+def test_seeded_probe_matches_pallas_interpret(body, seed, monkeypatch):
+    """The seeded inputs chip_smoke.py's phase 5 holds the paged and row-mask
+    kernels to, through the plain version and the reference's probe."""
+    x = probes.seeded_input(body, seed, device="cpu")
+    assert bool((x.abs() < 2**24).all())
+    ref = _reference_output(body, monkeypatch, x.numpy())
+    got = probes.run(body, x).numpy()
+    assert got.dtype == ref.dtype and got.shape == ref.shape == (8, 128)
+    assert int((got.view(np.int32) != ref.view(np.int32)).sum()) == 0
+
+
+def test_seeded_inputs_reach_both_branches():
+    """Paged probe 4's page links fall on both sides of the push test and
+    rowmask probe 3's rows on both sides of 700 in every seeded input."""
+    for seed in range(8):
+        links = probes.seeded_input("paged/probe4", seed, "cpu")[[2, 6, 10]].amin(dim=1)
+        assert bool((links <= 4).any()) and bool((links > 4).any())
+        rows = (probes.seeded_input("rowmask/probe3", seed, "cpu")[:8] > 700).any(dim=1)
+        assert 0 < int(rows.sum()) < 8
+
+
+def test_redesign_rank():
+    """launches x (ms - bound), largest first; a kernel at half its bound
+    (nothing to save) is left out."""
+    rows = {"paged": {"launches": 4, "ms": 0.004, "bound_ms": 3.1e-6},
+            "rowmask": {"launches": 3, "ms": 0.005, "bound_ms": 2.4e-6},
+            "once": {"launches": 1, "ms": 0.006, "bound_ms": 1.5e-6},
+            "at_half_bound": {"launches": 9, "ms": 1e-6, "bound_ms": 2e-6}}
+    rank = probes.redesign_rank(rows)
+    assert [k for k, _ in rank] == ["paged", "rowmask", "once"]
+    assert rank[0][1] == pytest.approx(4 * (0.004 - 3.1e-6))
+    assert probes.redesign_rank({"x": {"launches": 0, "ms": 1.0, "bound_ms": 0.0}}) == []
+
+
+def test_floor_and_kernels_refuse_cpu_tensors():
+    """The floor and the kernels launch only on CUDA tensors; the wrapper
+    takes the plain version on the CPU instead."""
+    x = probes.make_input("paged/probe1", "cpu")
+    with pytest.raises(ValueError):
+        probes.run_floor(x)
+    with pytest.raises(ValueError):
+        probes.launch("paged/probe1", x)
+    assert torch.equal(probes.run("paged/probe1", x), probes.run_plain("paged/probe1", x))
