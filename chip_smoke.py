@@ -97,8 +97,8 @@ exits non-zero (there is no CPU fallback):
      inputs (0 differing words); each kernel's device time (CUDA events over
      200 launches back to back behind a sleep backlog), its time at the
      host's launch rate (``host_ms``), the plain version's, and the launch
-     floor (an empty kernel of the probes' launch shape, timed the same
-     way); the kernels ranked by launches x (device ms - bound);
+     floor (an empty kernel launched with the kernel's block size, timed
+     the same way); the kernels ranked by launches x (device ms - bound);
   6. inverse rendering (``optim.py`` on torch autograd): 6a bench config 4
      (the blockless Cornell box by brute force, 32x32, 8 spp, 2 bounces,
      DIRECT, Adam 3e-2 on attrs from a wall albedo of [0.3, 0.5, 0.6]; one
@@ -276,30 +276,14 @@ DELTA = (2e-3, 1.5e-2, 6e-3)   # test_glass.py:181, test_delta_lighting.py:144
 PHONG = (2e-3, 1.2e-2, 5e-3)   # test_golden.py test_golden_phong
 
 
-def _smi() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+def _ms(fn, reps: int, warm_up: bool = True, backlog: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` by CUDA events
+    (:func:`terra_tpu_torch.profile.device_ms`; ``backlog``: behind a sleep
+    kernel, so a kernel shorter than its wrapper's host cost is timed back
+    to back on the device)."""
+    from terra_tpu_torch.profile import device_ms
 
-
-def _ms(torch, fn, reps: int, warm_up: bool = True, backlog: bool = False) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
-    after one warm-up run (``warm_up=False``: the caller has just run it).
-    With ``backlog`` the stream first gets a sleep kernel longer than the
-    host takes to enqueue the runs (``torch.cuda._sleep``, ~10 ms), so a
-    kernel shorter than its wrapper's host cost is timed back to back on
-    the device, not at the host's launch rate."""
-    if warm_up:
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if backlog:
-        torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return device_ms(fn, reps, warm_up, backlog)
 
 
 def _compare(name, kernel, plain, t_max=None, any_hit=False):
@@ -386,12 +370,9 @@ def _sass_check(probes, path):
     """Every probe kernel ports a make_async_copy, so its SASS must hold the
     bulk copy (UBLKCP on sm_90a) and the mbarrier phase wait (SYNCS). The
     instruction names found are printed and returned."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
-                          check=True).stdout
-    blocks = {b.split()[0]: b for b in re.split(r"\n\s*Function : ", sass)[1:]}
+    blocks = probes.sass(path)
     found = {}
-    for name, (fn, _) in probes.KERNELS.items():
+    for name, (fn, _, _) in probes.KERNELS.items():
         block = blocks.get(f"{fn}_kernel", "")
         copy = sorted(set(re.findall(r"\bUBLKCP[.\w]*", block)))
         wait = sorted(set(re.findall(r"\bSYNCS\.[.\w]*", block)))
@@ -532,7 +513,7 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
     binary_camera = {}
     for name, o, d, tm, any_hit, algo in cases:
-        ms = _ms(torch, lambda: pt.raycast_cuda(binary, o, d, tm, any_hit, algo), 20)
+        ms = _ms(lambda: pt.raycast_cuda(binary, o, d, tm, any_hit, algo), 20)
         print(f"  binary {name}: kernel {ms:.3f} ms ({o.shape[0] / ms / 1e3:.1f} Mrays/s)",
               flush=True)
         if name.startswith("camera"):  # the binary walk's least time on these rays
@@ -561,9 +542,9 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
             _compare(f"{mode} {name} vs brute force ({N_CHECK} rays, {n_off} off-triangle "
                      f"brute-force hits left out)", (k[0][rows], k[1][rows]), (bt, bi), tmr,
                      any_hit)
-            kernel_ms = _ms(torch, lambda: pt.raycast4_cuda(tab, o, d, tm, any_hit, algo), 20)
+            kernel_ms = _ms(lambda: pt.raycast4_cuda(tab, o, d, tm, any_hit, algo), 20)
             # the comparison run above was the plain walk's warm-up
-            plain_ms = _ms(torch, lambda: pt.raycast4_plain(tab, o, d, tm, any_hit, algo), 1,
+            plain_ms = _ms(lambda: pt.raycast4_plain(tab, o, d, tm, any_hit, algo), 1,
                            warm_up=False)
             print(f"  {mode} {name}: kernel {kernel_ms:.3f} ms "
                   f"({o.shape[0] / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.3f} ms",
@@ -578,9 +559,9 @@ def _bvh4_gate(torch, pt, scene, label, cam, dev, seed):
             same = same and all(torch.equal(a, b) for a, b in zip(k1, p1))
             c = pt.count_decode(k1[2])
             util = float(np.mean(c["pops"] / np.maximum(c["iters"], 1)))
-            kernel_ms = _ms(torch, lambda: pt.raycast4_cuda(tab, o, d, tm, any_hit, algo,
+            kernel_ms = _ms(lambda: pt.raycast4_cuda(tab, o, d, tm, any_hit, algo,
                                                             count=True), 20)
-            plain_ms = _ms(torch, lambda: pt.raycast4_plain(tab, o, d, tm, any_hit, algo,
+            plain_ms = _ms(lambda: pt.raycast4_plain(tab, o, d, tm, any_hit, algo,
                                                             count=True), 1, warm_up=False)
             print(f"  {mode} {name} counted: identical to uncounted and to the counted plain "
                   f"walk {same}; kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; warps "
@@ -652,8 +633,8 @@ def _start_gate(torch, pt, scene, label, dev, seed):
             torch.cuda.synchronize()
             err = _compare(f"{kind} start links {case} vs plain", k, p, tm)
             words = int((k[0] != p[0]).sum()) + int((k[1] != p[1]).sum())
-            kernel_ms = _ms(torch, lambda: kfn(tab, o, d, tm, start=st), 20)
-            plain_ms = _ms(torch, lambda: pfn(tab, o, d, tm, start=st), 1, warm_up=False)
+            kernel_ms = _ms(lambda: kfn(tab, o, d, tm, start=st), 20)
+            plain_ms = _ms(lambda: pfn(tab, o, d, tm, start=st), 1, warm_up=False)
             print(f"  {kind} start links {case}: kernel {kernel_ms:.3f} ms "
                   f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.3f} ms", flush=True)
             if words:
@@ -731,7 +712,7 @@ def _main_path_phase(torch, pt, batches, binary, footprint):
                 torch, pt, t, lambda v: pfn(t, o, d, tm, any_hit, algo, count=True, visits=v),
                 n_inner, o.shape[0], node_bytes, arity)
             words = sum(int((a != b).sum()) for a, b in zip(k, p if arity == 4 else p[:2]))
-            ms = _ms(torch, lambda: kfn(t, o, d, tm, any_hit, algo), 50, backlog=True)
+            ms = _ms(lambda: kfn(t, o, d, tm, any_hit, algo), 50, backlog=True)
             blocks, dyn = pt.occupancy(t, tm is not None, any_hit, algo)
             inst = ("bvh4_traverse_kernel<{},{},{},{},{},0>".format(
                 int(algo != "mt"), int(tm is not None), int(any_hit), int(t.box_enc == "bf16"),
@@ -921,7 +902,7 @@ def _cap_ab(torch, pt, batches, binary, footprint64):
             times = {160: [], 64: []}
             for cap in (160, 64, 64, 160):
                 with _with_cap(pt, cap):
-                    times[cap].append(_ms(torch, lambda: kfn(t, o, d, tm, any_hit, algo), 50,
+                    times[cap].append(_ms(lambda: kfn(t, o, d, tm, any_hit, algo), 50,
                                           backlog=True))
             ms160, ms64 = (float(np.mean(times[c])) for c in (160, 64))
             frame64 = max(fp[1] for fp in footprint64[name].values())
@@ -1308,27 +1289,26 @@ PROBE_ENTRIES = {  # body -> (module, function) of its terra_tpu_torch.scripts e
 }
 
 
-SEEDED_PROBES = 8  # seeded inputs each body of the paged and row-mask kernels is held to
-
-
 def _probe_phase(torch):
     """Phase 5. Returns {kernel: {"launches", "max_abs_err", "ms", "host_ms",
     "floor_ms", "plain_ms", "bound_ms", "bound_by", "replaces", "bodies"}}:
     ``ms`` the device time (200 launches back to back behind a sleep
     backlog), ``host_ms`` the time of a ``probes.run`` call at the host's
-    launch rate, ``floor_ms`` the empty kernel's device time; a kernel
-    serving several bodies reports its slowest body's times. The paged and
-    row-mask kernels are also held to the plain version on
-    ``SEEDED_PROBES`` seeded inputs a body."""
+    launch rate, ``floor_ms`` the empty kernel's device time at the
+    kernel's block size; a kernel serving several bodies reports its
+    slowest body's times. The paged and row-mask kernels are also held to
+    the plain version on ``probes.SEEDS`` seeded inputs a body."""
     import importlib
 
     from terra_tpu_torch import probes
 
     x0 = probes.make_input("paged/probe1", "cuda")
-    floor_ms = _ms(torch, lambda: probes.run_floor(x0), 200, backlog=True)
-    floor_host_ms = _ms(torch, lambda: probes.run_floor(x0), 200)
-    print(f"phase 5: launch floor ({probes.FLOOR}: one block of 256 threads, no work): device "
-          f"{floor_ms:.5f} ms, host rate {floor_host_ms:.5f} ms", flush=True)
+    floors = {}  # threads -> the empty kernel's device ms
+    for threads in sorted({t for _, _, t in probes.KERNELS.values()}, reverse=True):
+        floors[threads] = _ms(lambda: probes.run_floor(x0, threads), 200, backlog=True)
+        host = _ms(lambda: probes.run_floor(x0, threads), 200)
+        print(f"phase 5: launch floor ({probes.FLOOR}: one block of {threads} threads, no work): "
+              f"device {floors[threads]:.5f} ms, host rate {host:.5f} ms", flush=True)
     out = {}
     for name, (module, fn) in PROBE_ENTRIES.items():
         body = probes.BODIES[name]
@@ -1343,15 +1323,16 @@ def _probe_phase(torch):
         err = float((got.double() - plain.double()).abs().max())
         seeded = []
         if body.kernel in ("rowmask_patterns", "paged_patterns"):
-            for seed in range(SEEDED_PROBES):
+            for seed in range(probes.SEEDS):
                 xs = probes.seeded_input(name, seed, "cuda")
                 got_s, plain_s = probes.launch(name, xs), probes.run_plain(name, xs)
                 seeded.append(int((got_s.view(torch.int32) != plain_s.view(torch.int32)).sum()))
                 err = max(err, float((got_s.double() - plain_s.double()).abs().max()))
-        kernel_ms = _ms(torch, lambda: probes.run(name, x), 200, backlog=True)
-        host_ms = _ms(torch, lambda: probes.run(name, x), 200)
-        plain_ms = _ms(torch, lambda: probes.run_plain(name, x), 200)
+        kernel_ms = _ms(lambda: probes.run(name, x), 200, backlog=True)
+        host_ms = _ms(lambda: probes.run(name, x), 200)
+        plain_ms = _ms(lambda: probes.run_plain(name, x), 200)
         bound_ms, bound_by = _bound(body.staged_rows * probes.W * 4 + got.numel() * 4, body.ops)
+        floor_ms = floors[probes.KERNELS[body.kernel][2]]
         print(f"phase 5: {name} ({body.kernel}): OK {ok}, launches {n_launch}, words differing "
               f"from the plain version {words}"
               + (f", on {len(seeded)} seeded inputs {seeded}" if seeded else "")
@@ -2176,7 +2157,7 @@ def _phase8d(torch, pt, scene, cam, bounce):
         torch.cuda.synchronize()
         walk_s = time.perf_counter() - t0
         kt, ki = pt.raycast4_cuda(tables, o, d)
-        kernel_ms = _ms(torch, lambda: pt.raycast4_cuda(tables, o, d), 20)
+        kernel_ms = _ms(lambda: pt.raycast4_cuda(tables, o, d), 20)
         hk = kt < T_FAR
         bad = int((h.hit != hk).sum())
         same = h.tri[hk] == ki[hk]
@@ -3037,10 +3018,10 @@ def _phase10f(torch, ttt, pt, scene, cam):
 
         with optim.deterministic():
             times = {
-                "product": _ms(torch, lambda: surface.fetch_rows(table, idx), 20),
-                "gather": _ms(torch, lambda: table[idx], 20),
-                "product backward": _ms(torch, product_backward, 20),
-                "index accumulate": _ms(torch, lambda: torch.zeros_like(table).index_put_(
+                "product": _ms(lambda: surface.fetch_rows(table, idx), 20),
+                "gather": _ms(lambda: table[idx], 20),
+                "product backward": _ms(product_backward, 20),
+                "index accumulate": _ms(lambda: torch.zeros_like(table).index_put_(
                     (idx,), g, accumulate=True), 5),
             }
         rows[label] = {"words": words, "grad_words": grad_words, "unguarded_words": unguarded,
@@ -3193,8 +3174,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
 
+    from terra_tpu_torch.profile import card
+
     # 0. the card
-    smi = _smi()
+    smi = card()
     print(smi, flush=True)
     print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
@@ -3261,8 +3244,8 @@ def main() -> None:
         p = pt.raycast_plain(tables, o, d, tm, any_hit, algo)
         torch.cuda.synchronize()
         max_err = max(max_err, _compare(name, k, p, tm))
-        kernel_ms = _ms(torch, lambda: pt.raycast_cuda(tables, o, d, tm, any_hit, algo), 20)
-        plain_ms = _ms(torch, lambda: pt.raycast_plain(tables, o, d, tm, any_hit, algo), 1)
+        kernel_ms = _ms(lambda: pt.raycast_cuda(tables, o, d, tm, any_hit, algo), 20)
+        plain_ms = _ms(lambda: pt.raycast_plain(tables, o, d, tm, any_hit, algo), 1)
         times[name] = (kernel_ms, plain_ms)
         print(f"  {name}: kernel {kernel_ms:.3f} ms ({o.shape[0] / kernel_ms / 1e3:.1f} Mrays/s), "
               f"plain {plain_ms:.3f} ms ({o.shape[0] / plain_ms / 1e3:.2f} Mrays/s)", flush=True)
@@ -3349,14 +3332,14 @@ def main() -> None:
     print(f"phase 3m: config 3m, wide_mode {pt.wide_mode(mega.bvh)}", flush=True)
     packed = pt.pack_tables_wide(mega.bvh, *mega.geometry.corners(), box_enc="bf16")
     o_u, d_u = _camera_rays(torch, cam, 1024, dev)
-    sort_ms = _ms(torch, lambda: traverse.sort_order(mega.bvh, o_u, d_u, "dir3"), 20)
+    sort_ms = _ms(lambda: traverse.sort_order(mega.bvh, o_u, d_u, "dir3"), 20)
     order = traverse.sort_order(mega.bvh, o_u, d_u, "dir3")
     o_m, d_m = o_u[order].contiguous(), d_u[order].contiguous()
     pt.launches = pt.launches4 = 0
     bt, bi = pt.traverse_packed(packed, o_m, d_m)
     torch.cuda.synchronize()
     main_launches.update(binary=pt.launches, bvh4=pt.launches4)
-    tp_ms = _ms(torch, lambda: pt.traverse_packed(packed, o_m, d_m), 20)
+    tp_ms = _ms(lambda: pt.traverse_packed(packed, o_m, d_m), 20)
     c = pt.count_decode(pt.traverse_packed(packed, o_m, d_m, count_steps=True)[2])
     hits = int((bt < intersect.T_FAR).sum())
     print(f"  dir3 sort of 2^20 camera rays (keys + stable argsort): {sort_ms:.3f} ms", flush=True)
@@ -3365,7 +3348,7 @@ def main() -> None:
           f"{int(c['iters'].sum())} pops {int(c['pops'].sum())} leaf tests "
           f"{int(c['leaves'].sum())} paged {int(c['paged'].sum())}", flush=True)
     ut, ui = pt.traverse_packed(packed, o_u, d_u)
-    tu_ms = _ms(torch, lambda: pt.traverse_packed(packed, o_u, d_u), 20)
+    tu_ms = _ms(lambda: pt.traverse_packed(packed, o_u, d_u), 20)
     cu = pt.count_decode(pt.traverse_packed(packed, o_u, d_u, count_steps=True)[2])
     back_t, back_i = torch.empty_like(bt), torch.empty_like(bi)
     back_t[order], back_i[order] = bt, bi
@@ -3542,7 +3525,7 @@ def main() -> None:
                         "library": "no single PyTorch call computes a probe body",
                         **row})
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(_smi(), flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

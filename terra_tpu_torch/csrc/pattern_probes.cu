@@ -37,7 +37,7 @@
 // block out), 1.5-3.1 ns at 3.35 TB/s, and does at most ~25k operations.
 // Its time on the card is the launch plus the copy round trips it leaves
 // exposed and the synchronisation around them. On the H100 the launch of
-// terra_probe_empty (same block, no work) takes ~1.85 us back to back and
+// terra_probe_empty (same block, no work) takes 1.6-2.0 us back to back and
 // one exposed round trip ~0.18 us (chip_smoke.py phase 5): the design can
 // only cut the round trips and the block-wide synchronisation.
 //
@@ -47,15 +47,16 @@
 // then stored under its bit as the TPU does, row bits folded across warps
 // with atomicOr. The paged and row-mask kernels are designed for Hopper:
 //   * terra_probe_paged_kernel: one warp (the body is one scalar a page) and
-//     a ring of PAGED_RING page buffers with one mbarrier each. Inside the
-//     loop, before page i is consumed, the ring is topped up: every page up
-//     to i + PAGED_RING - 1 not yet issued is copied into its buffer, so the
-//     next pages' copies are in flight while page i is tested and, with
-//     three buffers for the three pages, only the first round trip is
-//     exposed (PAGED_RING 2 exposes part of page 2's and read 0.10-0.22 us a
-//     launch slower on the H100). A buffer is overwritten only after a
-//     __syncwarp (every lane has read it) and the async-proxy fence; with
-//     three buffers none is.
+//     a ring of two page buffers with one mbarrier each. Inside the loop,
+//     before page i is consumed, the ring is topped up with page i + 1, so
+//     the next page's copy is in flight while page i is tested. Page 2 goes
+//     into the buffer page 0 left: a __syncwarp (every lane has read it) and
+//     the async-proxy fence come first, and its wait is on the barrier's
+//     second completion (parity 1), the pattern a paged walk with more pages
+//     than buffers runs. Three buffers (every copy issued on the first trip,
+//     none reused) read 0.08-0.18 us a launch faster on three of the four
+//     bodies on the H100 but never reuse a buffer, so the ring stays at two
+//     (PERF.md).
 //     Row minima take one 16-byte shared read a lane and five shuffles; the
 //     stack push of probe 4 is ordered by __syncwarp; the output is written
 //     as 16-byte stores.
@@ -65,11 +66,10 @@
 //     rows its bits select), so no warp waits for another and nothing is
 //     shared across warps; probe 3's row bit is the warp's own ballot.
 //     Probe 2 reads column r of every row, so it waits for the whole block:
-//     ROWMASK_ROW_COPIES 0, the default, copies the 4 KiB at once on one
-//     barrier; 1 gives each warp its row's copy and barrier and waits on all
-//     eight, which read ~0.26 us a launch slower on the H100
-//     (terra_tpu_torch/scripts/probe_ab.py times both). Every output word is
-//     written once, by a 16-byte store of the selected value.
+//     one 4 KiB copy on one barrier (a copy and a barrier a row, every warp
+//     waiting on all eight, read 0.13-0.26 us a launch slower on the H100).
+//     Every output word is written once, by a 16-byte store of the selected
+//     value.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC -Xptxas -v
@@ -82,21 +82,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef PAGED_RING
-#define PAGED_RING 3  // page buffers of the paged kernel (2 or 3)
-#endif
-#ifndef ROWMASK_ROW_COPIES
-#define ROWMASK_ROW_COPIES 0  // rowmask probe 2: one copy (0) or one per row (1)
-#endif
-
 namespace {
 
 constexpr int W = 128;      // lanes of a row
 constexpr int ROWS = 8;     // rows of the output block
 constexpr int BLOCK = 256;  // 8 warps, one per output row
 constexpr int PAGE_ROWS = 4, PAGES = 3;  // the paged probes' (4, 128) pages
+constexpr int RING = 2;     // page buffers of the paged kernel
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(PAGED_RING >= 2 && PAGED_RING <= PAGES, "the ring holds 2 or 3 pages");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -251,19 +244,12 @@ terra_probe_rowmask_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
     float4* orow = reinterpret_cast<float4*>(out + r * W);
     if (probe == 2) {
-#if ROWMASK_ROW_COPIES
-        if (lane == 0) mbar_init(&bar[r]);
-        __syncthreads();  // every barrier initialised before any warp waits on it
-        if (lane == 0) bulk_copy(scr[r], x + r * W, sizeof(scr[r]), &bar[r]);
-        for (int k = 0; k < ROWS; ++k) barrier_wait(&bar[k], 0);
-#else
         if (threadIdx.x == 0) {
             mbar_init(&bar[0]);
             bulk_copy(scr, x, sizeof(scr), &bar[0]);
         }
         __syncthreads();  // the barrier initialised before any warp waits on it
         barrier_wait(&bar[0], 0);
-#endif
         const float4 v = reinterpret_cast<const float4*>(scr[r])[lane];
         float c = scr[0][r];
         float4 m = make_float4(c * v.x + c, c * v.y + c, c * v.z + c, c * v.w + c);
@@ -334,31 +320,31 @@ terra_probe_rowmask_planes_kernel(const float* __restrict__ x, float* __restrict
 //   probe 1: min(row 1);  probe 2: scr[1, 3];  probe 3: min(row 2);
 //   probe 4: link = int(min(row 2)); where link > 4 it is pushed onto an
 //            8-entry shared stack at slot i and the slot is read back, else 0.
-// One warp; page i sits in buffer i % PAGED_RING, its copy the
-// (i / PAGED_RING)-th completion of that buffer's barrier.
+// One warp; page i sits in buffer i % RING, its copy the (i / RING)-th
+// completion of that buffer's barrier.
 extern "C" __global__ void __launch_bounds__(32)
 terra_probe_paged_kernel(const float* __restrict__ x, float* __restrict__ out, int probe) {
-    __shared__ __align__(128) float page[PAGED_RING][PAGE_ROWS][W];
-    __shared__ uint64_t full[PAGED_RING];
+    __shared__ __align__(128) float page[RING][PAGE_ROWS][W];
+    __shared__ uint64_t full[RING];
     __shared__ int32_t stack[8];
     const int lane = threadIdx.x;
     if (lane == 0)
-        for (int b = 0; b < PAGED_RING; ++b) mbar_init(&full[b]);
+        for (int b = 0; b < RING; ++b) mbar_init(&full[b]);
     __syncwarp();  // the barriers initialised before any lane waits
     float acc = 0.0f;
     int issued = 0;
     for (int i = 0; i < PAGES; ++i) {
-        for (; issued < PAGES && issued < i + PAGED_RING; ++issued) {
-            const int b = issued % PAGED_RING;
-            if (issued >= PAGED_RING) {  // page issued - PAGED_RING, read at an earlier trip
+        for (; issued < PAGES && issued <= i + 1; ++issued) {  // pages i and i + 1 in flight
+            const int b = issued % RING;
+            if (issued >= RING) {  // buffer b held page issued - RING, read at an earlier trip
                 __syncwarp();
                 if (lane == 0) fence_proxy_async();
             }
             if (lane == 0)
                 bulk_copy(page[b], x + issued * PAGE_ROWS * W, sizeof(page[b]), &full[b]);
         }
-        const int b = i % PAGED_RING;
-        barrier_wait(&full[b], (i / PAGED_RING) & 1);
+        const int b = i % RING;
+        barrier_wait(&full[b], (i / RING) & 1);
         const float* scr = &page[b][0][0];
         float s;
         if (probe == 1) {
@@ -379,9 +365,9 @@ terra_probe_paged_kernel(const float* __restrict__ x, float* __restrict__ out, i
     fill4(out, acc);
 }
 
-// The launch floor: the probes' launch shape (one block of 8 warps, the
-// same arguments) and no work. Replaces no TPU kernel; chip_smoke.py times
-// it beside the probes.
+// The launch floor: a probe's launch shape (one block of ``block`` threads,
+// 256 or the paged kernel's 32; the same arguments) and no work. Replaces
+// no TPU kernel; chip_smoke.py times it beside the probes.
 extern "C" __global__ void __launch_bounds__(BLOCK)
 terra_probe_empty_kernel(const float* __restrict__, float* __restrict__) {}
 
@@ -419,7 +405,7 @@ extern "C" int terra_probe_paged(const float* x, float* out, int probe, void* st
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int terra_probe_empty(const float* x, float* out, void* stream) {
-    terra_probe_empty_kernel<<<1, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+extern "C" int terra_probe_empty(const float* x, float* out, int block, void* stream) {
+    terra_probe_empty_kernel<<<1, block, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
     return static_cast<int>(cudaGetLastError());
 }

@@ -18,16 +18,20 @@ on the current stream, raises if the launch fails, and never falls back.
 :data:`launches` counts kernel launches. Every value involved is an
 integer below 2^24 (or 1e9 plus one), exact in f32, so kernel and plain
 version agree word for word, on the reference's inputs (:func:`make_input`)
-and on seeded random ones (:func:`seeded_input`). :func:`run_floor`
-launches an empty kernel of the probes' launch shape, the floor a probe's
-device time is read against; :func:`redesign_rank` orders kernels by what
-a redesign could save on the path that launched them.
+and on :data:`SEEDS` seeded random ones (:func:`seeded_input`).
+:func:`run_floor` launches an empty kernel of a probe's launch shape, the
+floor its device time is read against; :func:`redesign_rank` orders
+kernels by what a redesign could save on the path that launched them;
+:func:`sass` reads a built library's machine code.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import os
+import re
+import shutil
+import subprocess
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -37,10 +41,11 @@ import torch
 from ._build import build_shared, nvcc
 
 __all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "run_floor", "launch", "make_input",
-           "seeded_input", "load_kernel", "load_library", "kernel_path", "redesign_rank",
-           "launches", "ROWS", "W"]
+           "seeded_input", "load_kernel", "load_library", "kernel_path", "redesign_rank", "sass",
+           "launches", "ROWS", "W", "SEEDS"]
 
 ROWS, W = 8, 128  # the (8, 128) output block of every probe
+SEEDS = 8  # seeded inputs each paged and row-mask body is held to (seeds 0 .. SEEDS - 1)
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "pattern_probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -155,14 +160,14 @@ class Body:
     fill: str = "arange"
 
 
-# kernel name -> (C launcher, whether it takes a body number)
+# kernel name -> (C launcher, whether it takes a body number, threads of its one block)
 KERNELS = {
-    "probe_hbm_to_smem": ("terra_probe_hbm_to_smem", False),
-    "probe_hbm_to_smem_i32_loop": ("terra_probe_hbm_to_smem_i32_loop", False),
-    "probe_smem_dma_in_while": ("terra_probe_smem_dma_in_while", False),
-    "rowmask_patterns": ("terra_probe_rowmask", True),
-    "rowmask_mask_planes": ("terra_probe_rowmask_planes", False),
-    "paged_patterns": ("terra_probe_paged", True),
+    "probe_hbm_to_smem": ("terra_probe_hbm_to_smem", False, 256),
+    "probe_hbm_to_smem_i32_loop": ("terra_probe_hbm_to_smem_i32_loop", False, 256),
+    "probe_smem_dma_in_while": ("terra_probe_smem_dma_in_while", False, 256),
+    "rowmask_patterns": ("terra_probe_rowmask", True, 256),
+    "rowmask_mask_planes": ("terra_probe_rowmask_planes", False, 256),
+    "paged_patterns": ("terra_probe_paged", True, 32),
 }
 
 _F32, _I32 = torch.float32, torch.int32
@@ -245,22 +250,20 @@ def seeded_input(name: str, seed: int, device="cuda") -> torch.Tensor:
 
 # ------------------------------------------------------------------ kernels
 
-# The launch floor: an empty kernel of the probes' launch shape.
+# The launch floor: an empty kernel launched with a probe's block size.
 FLOOR = "terra_probe_empty"
 
 
-def kernel_path(defines=()) -> str:
-    """Path of the built probe library (builds it if needed); ``defines``
-    (``NAME=VALUE``) set the source's build-time knobs."""
-    return build_shared([nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)], [SRC],
-                        "pattern_probes")
+def kernel_path() -> str:
+    """Path of the built probe library (builds it if needed)."""
+    return build_shared([nvcc(), *NVCC_FLAGS], [SRC], "pattern_probes")
 
 
 def load_library(path: str) -> ctypes.CDLL:
     """Load a built probe library and declare its launchers."""
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
-    for fn, numbered in [*KERNELS.values(), (FLOOR, False)]:
+    for fn, numbered, _ in [*KERNELS.values(), (FLOOR, True, None)]:
         if hasattr(lib, fn):
             f = getattr(lib, fn)
             f.restype = ctypes.c_int
@@ -287,10 +290,10 @@ def run_plain(name: str, x: torch.Tensor) -> torch.Tensor:
     return body.plain(x)
 
 
-def _launch(lib: ctypes.CDLL, fn: str, probe, x: torch.Tensor) -> torch.Tensor:
+def _launch(lib: ctypes.CDLL, fn: str, arg, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((ROWS, W), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), out.data_ptr(), *(() if probe is None else (probe,)), stream)
+    args = (x.data_ptr(), out.data_ptr(), *(() if arg is None else (arg,)), stream)
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
@@ -308,7 +311,7 @@ def launch(name: str, x: torch.Tensor, lib: Optional[ctypes.CDLL] = None) -> tor
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{body.kernel} needs a contiguous, 16-byte-aligned input (the bulk "
                          f"copy's rule)")
-    fn, numbered = KERNELS[body.kernel]
+    fn, numbered, _ = KERNELS[body.kernel]
     return _launch(lib or load_kernel(), fn, body.probe if numbered else None, x)
 
 
@@ -326,13 +329,17 @@ def run(name: str, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def run_floor(x: torch.Tensor, lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
-    """The empty kernel (one block of 256 threads, no work) launched on
-    ``x``'s card as :func:`run` launches a probe, output allocated and
-    left unwritten: the launch floor. Not counted in :data:`launches`."""
+def run_floor(x: torch.Tensor, threads: int = 256,
+              lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """The empty kernel (one block of ``threads``, a probe kernel's block
+    size in :data:`KERNELS`; no work) launched on ``x``'s card as
+    :func:`run` launches a probe, output allocated and left unwritten: the
+    launch floor. Not counted in :data:`launches`."""
+    if threads not in {t for _, _, t in KERNELS.values()}:
+        raise ValueError(f"the launch floor takes a probe kernel's block size, got {threads}")
     if x.device.type != "cuda":
         raise ValueError(f"the launch floor runs on cuda tensors, got {x.device}")
-    return _launch(lib or load_kernel(), FLOOR, None, x)
+    return _launch(lib or load_kernel(), FLOOR, threads, x)
 
 
 def redesign_rank(rows: dict) -> list:
@@ -342,3 +349,11 @@ def redesign_rank(rows: dict) -> list:
     its bound has nothing to save and is left out."""
     gain = {k: r["launches"] * (r["ms"] - r["bound_ms"]) for k, r in rows.items()}
     return sorted(((k, g) for k, g in gain.items() if g > 0), key=lambda kg: -kg[1])
+
+
+def sass(path: str) -> dict:
+    """{kernel: its SASS text} of a built library (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    return {b.split()[0]: b for b in re.split(r"\n\s*Function : ", text)[1:]}

@@ -5,7 +5,9 @@
 Device work is asynchronous to the host, so times on a CUDA device come
 from CUDA events on the current stream, and ``device_trace`` records a
 ``torch.profiler`` trace (CPU and CUDA activities) where the reference
-used ``jax.profiler``. Where the reference jits each stage of
+used ``jax.profiler``. ``device_ms`` times a CUDA call by events (behind a
+sleep backlog where the call is shorter than its host cost) and ``card``
+names the card and its power limit, to print beside any time. Where the reference jits each stage of
 ``stage_breakdown`` before timing it, the port captures it as a CUDA graph
 (``graphs.staged_unit``) and times replays.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -20,7 +23,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["Stats", "Profiler", "ray_count", "profiler", "device_trace",
-           "stage_breakdown"]
+           "stage_breakdown", "device_ms", "card"]
 
 
 @dataclass
@@ -114,6 +117,35 @@ def device_trace(trace_dir: Optional[str]):
         yield prof
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def device_ms(fn, reps: int, warm_up: bool = True, backlog: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs on the current CUDA
+    stream, by CUDA events, after one warm-up run (``warm_up=False``: the
+    caller has just run it). With ``backlog`` the stream first gets a sleep
+    kernel longer than the host takes to enqueue the runs
+    (``torch.cuda._sleep``, ~10 ms), so a kernel shorter than its wrapper's
+    host cost is timed back to back on the device, not at the host's
+    launch rate."""
+    if warm_up:
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if backlog:
+        torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def _best_seconds(fn, device: torch.device, reps: int = 3) -> float:

@@ -4,18 +4,17 @@
         [--json OUT.json]
 
 builds ``OLD.cu`` (an earlier ``csrc/pattern_probes.cu``, e.g. from ``git
-show``), this checkout's ``csrc/pattern_probes.cu`` and the latter with each
-build-time knob of :data:`VARIANTS`, all at once, with the probes' nvcc
-flags; prints each build's registers and shared memory per kernel and
-which kernels compiled to the parent's SASS instruction for instruction;
-holds every build's kernels to the plain versions on the reference's input
-and on 8 seeded ones (0 differing words, or it exits 1 before timing);
-then times every body on the device (CUDA events over ``--reps`` launches
-back to back behind a sleep backlog, so the host's launch rate is not
-what is timed) with the builds in turns, parent, new, variants, then the
-same in reverse, and the launch floor (``terra_probe_empty``) at both
-ends. Prints the card's name and power limit and one JSON object as its
-last line.
+show``) and this checkout's ``csrc/pattern_probes.cu`` at once, with the
+probes' nvcc flags; prints each build's registers and shared memory per
+kernel and which kernels compiled to the parent's SASS instruction for
+instruction; holds both builds' kernels to the plain versions on the
+reference's input and on ``probes.SEEDS`` seeded ones (0 differing words,
+or it exits 1 before timing); then times every body on the device (CUDA
+events over ``--reps`` launches back to back behind a sleep backlog, so
+the host's launch rate is not what is timed) with the builds in turns,
+parent, new, new, parent, and the launch floor (``terra_probe_empty`` at
+each probe block size) at both ends. Prints the card's name and power
+limit and one JSON object as its last line.
 """
 from __future__ import annotations
 
@@ -23,33 +22,13 @@ import argparse
 import json
 import os
 import re
-import shutil
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from .. import _build, probes
-
-# build name -> the -D knobs of csrc/pattern_probes.cu it sets
-VARIANTS = {"ring2": ("PAGED_RING=2",), "row_copies": ("ROWMASK_ROW_COPIES=1",)}
-SEEDS = 8
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` launches queued
-    behind a ~10 ms sleep kernel, after one warm-up launch."""
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+from ..profile import card, device_ms
 
 
 def footprints(path: str) -> dict:
@@ -65,19 +44,6 @@ def footprints(path: str) -> dict:
     return out
 
 
-def sass(path: str) -> dict:
-    """{kernel: its SASS text} of a built library (``cuobjdump -sass``)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
-                          check=True).stdout
-    return {b.split()[0]: b for b in re.split(r"\n\s*Function : ", text)[1:]}
-
-
-def _smi() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="the earlier pattern_probes.cu")
@@ -89,12 +55,11 @@ def main(argv=None) -> int:
     cmd = [_build.nvcc(), *probes.NVCC_FLAGS]
     jobs = {"parent": lambda: _build.build_shared(cmd, [os.path.abspath(args.parent)],
                                                   "pattern_probes_parent"),
-            "new": probes.kernel_path,
-            **{v: (lambda d=d: probes.kernel_path(d)) for v, d in VARIANTS.items()}}
+            "new": probes.kernel_path}
     with ThreadPoolExecutor(len(jobs)) as ex:
         paths = {b: f.result() for b, f in {b: ex.submit(fn) for b, fn in jobs.items()}.items()}
     libs = {b: probes.load_library(p) for b, p in paths.items()}
-    code = {b: sass(p) for b, p in paths.items()}
+    code = {b: probes.sass(p) for b, p in paths.items()}
     same = {b: sorted(k for k, t in code[b].items() if code["parent"].get(k) == t)
             for b in paths}
     for b, p in paths.items():
@@ -104,30 +69,40 @@ def main(argv=None) -> int:
     words = {b: {} for b in libs}
     for name in probes.BODIES:
         inputs = [probes.make_input(name, "cuda")] + [probes.seeded_input(name, s, "cuda")
-                                                      for s in range(SEEDS)]
+                                                      for s in range(probes.SEEDS)]
         plain = [probes.run_plain(name, x) for x in inputs]
         for b, lib in libs.items():
             words[b][name] = [int((probes.launch(name, x, lib).view(torch.int32)
                                    != p.view(torch.int32)).sum()) for x, p in zip(inputs, plain)]
     bad = {b: {n: w for n, w in ws.items() if any(w)} for b, ws in words.items()}
-    print(f"words differing from the plain version (reference input + {SEEDS} seeded), by "
+    print(f"words differing from the plain version (reference input + {probes.SEEDS} seeded), by "
           f"build: { {b: bad[b] or 0 for b in bad} }", flush=True)
     if any(bad.values()):
         return 1
 
-    order = list(libs) + list(libs)[::-1]
+    order = ["parent", "new", "new", "parent"]
     x0 = probes.make_input("paged/probe1", "cuda")
+    threads = sorted({t for _, _, t in probes.KERNELS.values()}, reverse=True)
     times = {name: {b: [] for b in libs} for name in probes.BODIES}
-    floor = [device_ms(lambda: probes.run_floor(x0, libs["new"]), args.reps)]
+    floor = {t: [] for t in threads}
+
+    def time_floor():
+        for t in threads:
+            floor[t].append(device_ms(lambda: probes.run_floor(x0, t, libs["new"]), args.reps,
+                                      backlog=True))
+
+    time_floor()
     for b in order:
         for name in probes.BODIES:
             x = probes.make_input(name, "cuda")
-            times[name][b].append(device_ms(lambda: probes.launch(name, x, libs[b]), args.reps))
-    floor.append(device_ms(lambda: probes.run_floor(x0, libs["new"]), args.reps))
+            times[name][b].append(device_ms(lambda: probes.launch(name, x, libs[b]), args.reps,
+                                            backlog=True))
+    time_floor()
 
-    smi = _smi()
-    print(f"device ms per launch, {args.reps} back to back, builds in turns {order}; "
-          f"floor {floor[0]:.5f} / {floor[1]:.5f} ms; {smi}", flush=True)
+    smi = card()
+    print(f"device ms per launch, {args.reps} back to back, builds in turns {order}; floor "
+          + "; ".join(f"{t} threads {fs[0]:.5f} / {fs[1]:.5f}" for t, fs in floor.items())
+          + f" ms; {smi}", flush=True)
     for name, by in times.items():
         print(f"  {name}: " + "; ".join(f"{b} " + " / ".join(f"{t:.5f}" for t in ts)
                                        for b, ts in by.items()), flush=True)

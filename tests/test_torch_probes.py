@@ -4,6 +4,7 @@ interpret mode: the same (8, 128) output, word for word, on the
 reference's own inputs and on seeded random ones."""
 import importlib.util
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -88,7 +89,7 @@ def test_wrapper_refuses_wrong_input(bad):
         probes.run("smem_dma/hbm_to_smem", x)
 
 
-@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("seed", range(probes.SEEDS))
 @pytest.mark.parametrize("body", [b for b in CASES if b.startswith(("rowmask/", "paged/"))])
 def test_seeded_probe_matches_pallas_interpret(body, seed, monkeypatch):
     """The seeded inputs chip_smoke.py's phase 5 holds the paged and row-mask
@@ -104,7 +105,7 @@ def test_seeded_probe_matches_pallas_interpret(body, seed, monkeypatch):
 def test_seeded_inputs_reach_both_branches():
     """Paged probe 4's page links fall on both sides of the push test and
     rowmask probe 3's rows on both sides of 700 in every seeded input."""
-    for seed in range(8):
+    for seed in range(probes.SEEDS):
         links = probes.seeded_input("paged/probe4", seed, "cpu")[[2, 6, 10]].amin(dim=1)
         assert bool((links <= 4).any()) and bool((links > 4).any())
         rows = (probes.seeded_input("rowmask/probe3", seed, "cpu")[:8] > 700).any(dim=1)
@@ -128,8 +129,22 @@ def test_floor_and_kernels_refuse_cpu_tensors():
     """The floor and the kernels launch only on CUDA tensors; the wrapper
     takes the plain version on the CPU instead."""
     x = probes.make_input("paged/probe1", "cpu")
-    with pytest.raises(ValueError):
-        probes.run_floor(x)
+    for threads in (256, 32):
+        with pytest.raises(ValueError, match="cuda tensors"):
+            probes.run_floor(x, threads)
+    with pytest.raises(ValueError, match="block size"):
+        probes.run_floor(x, 64)
     with pytest.raises(ValueError):
         probes.launch("paged/probe1", x)
     assert torch.equal(probes.run("paged/probe1", x), probes.run_plain("paged/probe1", x))
+
+
+def test_block_sizes_match_the_launchers():
+    """:data:`probes.KERNELS` gives each kernel the block its C launcher
+    launches, so the launch floor is timed at each kernel's own shape."""
+    src = pathlib.Path(probes.SRC).read_text()
+    launched = {fn: {"BLOCK": 256}.get(threads, threads) for fn, threads in re.findall(
+        r'extern "C" int (\w+)\([^)]*\) \{\s*\w+_kernel<<<1, (\w+),', src)}
+    assert {fn: int(t) for fn, t in launched.items() if fn != probes.FLOOR} == {
+        fn: threads for fn, _, threads in probes.KERNELS.values()}
+    assert launched[probes.FLOOR] == "block"
