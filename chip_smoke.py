@@ -92,11 +92,10 @@ exits non-zero (there is no CPU fallback):
      integrators, under the reference tests' budgets;
   5. the pattern probes: each of the eleven bodies through its
      ``terra_tpu_torch.scripts`` entry point on the card (it must print OK),
-     held word for word against its plain PyTorch version on the same input,
-     and each body of the paged and row-mask kernels also on 8 seeded
-     inputs (0 differing words); each kernel's device time (CUDA events over
-     200 launches back to back behind a sleep backlog), its time at the
-     host's launch rate (``host_ms``), the plain version's, and the launch
+     held word for word against its plain PyTorch version on the same input
+     and on 8 seeded inputs (0 differing words); each kernel's device time
+     (CUDA events over 200 launches back to back behind a sleep backlog),
+     its time at the host's launch rate (``host_ms``), the plain version's, and the launch
      floor (an empty kernel launched with the kernel's block size, timed
      the same way); the kernels ranked by launches x (device ms - bound);
   6. inverse rendering (``optim.py`` on torch autograd): 6a bench config 4
@@ -1296,8 +1295,8 @@ def _probe_phase(torch):
     backlog), ``host_ms`` the time of a ``probes.run`` call at the host's
     launch rate, ``floor_ms`` the empty kernel's device time at the
     kernel's block size; a kernel serving several bodies reports its
-    slowest body's times. The paged and row-mask kernels are also held to
-    the plain version on ``probes.SEEDS`` seeded inputs a body."""
+    slowest body's times. Every body is also held to the plain version on
+    ``probes.SEEDS`` seeded inputs."""
     import importlib
 
     from terra_tpu_torch import probes
@@ -1322,12 +1321,11 @@ def _probe_phase(torch):
         words = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
         err = float((got.double() - plain.double()).abs().max())
         seeded = []
-        if body.kernel in ("rowmask_patterns", "paged_patterns"):
-            for seed in range(probes.SEEDS):
-                xs = probes.seeded_input(name, seed, "cuda")
-                got_s, plain_s = probes.launch(name, xs), probes.run_plain(name, xs)
-                seeded.append(int((got_s.view(torch.int32) != plain_s.view(torch.int32)).sum()))
-                err = max(err, float((got_s.double() - plain_s.double()).abs().max()))
+        for seed in range(probes.SEEDS):
+            xs = probes.seeded_input(name, seed, "cuda")
+            got_s, plain_s = probes.launch(name, xs), probes.run_plain(name, xs)
+            seeded.append(int((got_s.view(torch.int32) != plain_s.view(torch.int32)).sum()))
+            err = max(err, float((got_s.double() - plain_s.double()).abs().max()))
         kernel_ms = _ms(lambda: probes.run(name, x), 200, backlog=True)
         host_ms = _ms(lambda: probes.run(name, x), 200)
         plain_ms = _ms(lambda: probes.run_plain(name, x), 200)
@@ -1335,7 +1333,7 @@ def _probe_phase(torch):
         floor_ms = floors[probes.KERNELS[body.kernel][2]]
         print(f"phase 5: {name} ({body.kernel}): OK {ok}, launches {n_launch}, words differing "
               f"from the plain version {words}"
-              + (f", on {len(seeded)} seeded inputs {seeded}" if seeded else "")
+              + f", on {len(seeded)} seeded inputs {seeded}"
               + f"; device {kernel_ms:.5f} ms (floor {floor_ms:.5f}), host rate {host_ms:.5f} "
               f"ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e6:.2f} ns ({bound_by})",
               flush=True)

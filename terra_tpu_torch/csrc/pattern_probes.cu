@@ -38,38 +38,52 @@
 // Its time on the card is the launch plus the copy round trips it leaves
 // exposed and the synchronisation around them. On the H100 the launch of
 // terra_probe_empty (same block, no work) takes 1.6-2.0 us back to back and
-// one exposed round trip ~0.18 us (chip_smoke.py phase 5): the design can
-// only cut the round trips and the block-wide synchronisation.
+// one exposed round trip ~0.2 us (chip_smoke.py phase 5): the design can
+// only cut the round trips, the block-wide synchronisation and the
+// instructions around them.
 //
-// The three smem_dma kernels and the mask-plane kernel are one block of 8
-// warps: one copy at a time, every thread waiting on it, warp r owning
-// output row r (lane l: columns l, l+32, l+64, l+96), the output row zeroed
-// then stored under its bit as the TPU does, row bits folded across warps
-// with atomicOr. The paged and row-mask kernels are designed for Hopper:
-//   * terra_probe_paged_kernel: one warp (the body is one scalar a page) and
-//     a ring of two page buffers with one mbarrier each. Inside the loop,
-//     before page i is consumed, the ring is topped up with page i + 1, so
-//     the next page's copy is in flight while page i is tested. Page 2 goes
-//     into the buffer page 0 left: a __syncwarp (every lane has read it) and
-//     the async-proxy fence come first, and its wait is on the barrier's
-//     second completion (parity 1), the pattern a paged walk with more pages
-//     than buffers runs. Three buffers (every copy issued on the first trip,
-//     none reused) read 0.08-0.18 us a launch faster on three of the four
-//     bodies on the H100 but never reuse a buffer, so the ring stays at two
-//     (PERF.md).
+// Two kernels are still one block of 8 warps, one copy at a time that
+// every thread waits on behind a block barrier, the (8, 128) output written
+// by all 256 threads: probe_hbm_to_smem and probe_hbm_to_smem_i32_loop. The
+// others are designed for Hopper:
+//   * terra_probe_paged_kernel and terra_probe_smem_dma_in_while_kernel:
+//     one warp (the body is one scalar a page or a row) and a ring of two
+//     buffers with one mbarrier each (ring_top_up, ring_wait). Inside the
+//     loop, before piece i is read, the ring is topped up with piece i + 1,
+//     so the next copy is in flight while piece i is waited on and read.
+//     Pieces 2 and 3 go into the buffers pieces 0 and 1 left: a __syncwarp
+//     (every lane has read it) and the async-proxy fence come first, and
+//     the wait is on the barrier's second completion (parity 1), the
+//     pattern a paged walk with more pages than buffers runs. So the
+//     dma-in-while kernel leaves about two of its four copy round trips
+//     exposed instead of four. The trip loop is unrolled: compiled as a
+//     loop (piece, buffer and parity in registers, the top-up a loop of its
+//     own) the same ring read 0.25-0.32 us a launch slower on the H100, no
+//     faster than four serial copies. Three buffers for the paged kernel
+//     (every copy issued on the first trip, none reused) read 0.08-0.18 us
+//     a launch faster than the ring as a loop on three of its four bodies,
+//     but never reuse a buffer, so the ring stays at two (PERF.md).
 //     Row minima take one 16-byte shared read a lane and five shuffles; the
-//     stack push of probe 4 is ordered by __syncwarp; the output is written
-//     as 16-byte stores.
-//   * terra_probe_rowmask_kernel: warp r computes output row r from what it
-//     stages itself. Probes 1 and 3 read only row r: the warp's lane 0 arms
-//     the warp's own barrier and copies that row (probe 1 copies only the
-//     rows its bits select), so no warp waits for another and nothing is
-//     shared across warps; probe 3's row bit is the warp's own ballot.
-//     Probe 2 reads column r of every row, so it waits for the whole block:
-//     one 4 KiB copy on one barrier (a copy and a barrier a row, every warp
-//     waiting on all eight, read 0.13-0.26 us a launch slower on the H100).
-//     Every output word is written once, by a 16-byte store of the selected
-//     value.
+//     stack push of paged probe 4 is ordered by __syncwarp; the output is
+//     written as 16-byte stores.
+//   * terra_probe_rowmask_kernel and terra_probe_rowmask_planes_kernel:
+//     warp r computes output row r from what it stages itself. Row-mask
+//     probes 1 and 3 and the mask planes read only row r: the warp's lane 0
+//     arms the warp's own barrier and copies that row (probe 1 copies only
+//     the rows its bits select), so no warp waits for another and nothing
+//     is shared across warps; a row bit is the warp's own ballot. The mask
+//     planes are saved to the warp's row of the (4, 8, 128) scratch at slot
+//     s in a loop and read back behind __syncwarp, each output row summed
+//     in registers in the reference's order. Probe 2 reads column r of
+//     every row, so it waits for the whole block: one 4 KiB copy on one
+//     barrier (a copy and a barrier a row, every warp waiting on all eight,
+//     read 0.13-0.26 us a launch slower on the H100). Every output word is
+//     written once, by a 16-byte store of the selected value.
+// Device time on the H100 (PERF.md §6; 200 launches back to back, chip_smoke.py
+// phase 5 and scripts/probe_ab.py): each kernel 2.0-2.9 us a launch against
+// an empty kernel's 1.6-1.9, which moves up to 0.25 us from call to call.
+// In one call against the block-wide designs they replace, the ring cut
+// dma-in-while by 0.38 us and the per-warp rows the mask planes by 0.37.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC -Xptxas -v
@@ -88,7 +102,8 @@ constexpr int W = 128;      // lanes of a row
 constexpr int ROWS = 8;     // rows of the output block
 constexpr int BLOCK = 256;  // 8 warps, one per output row
 constexpr int PAGE_ROWS = 4, PAGES = 3;  // the paged probes' (4, 128) pages
-constexpr int RING = 2;     // page buffers of the paged kernel
+constexpr int DMA_TRIPS = 4;  // rows the dma-in-while probe copies, one a trip
+constexpr int RING = 2;     // buffers of a one-warp ring (the paged and dma-in-while kernels)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -164,16 +179,6 @@ __device__ __forceinline__ float row_min4(const float* row) {
     return warp_min(fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
 }
 
-// Does any of row ``row``'s 128 lanes pass ``pred``? One ballot per
-// 32-column chunk, the same answer in every lane.
-template <typename Pred>
-__device__ __forceinline__ bool row_any(const float* row, Pred pred) {
-    const int lane = threadIdx.x & 31;
-    unsigned any = 0;
-    for (int c = lane; c < W; c += 32) any |= __ballot_sync(FULL, pred(row[c]));
-    return any != 0;
-}
-
 template <typename T>
 __device__ __forceinline__ void fill(T* __restrict__ out, T v) {
     for (int i = threadIdx.x; i < ROWS * W; i += BLOCK) out[i] = v;
@@ -183,6 +188,41 @@ __device__ __forceinline__ void fill(T* __restrict__ out, T v) {
 __device__ __forceinline__ void fill4(float* __restrict__ out, float v) {
     float4* o = reinterpret_cast<float4*>(out);
     for (int i = threadIdx.x & 31; i < ROWS * W / 4; i += 32) o[i] = make_float4(v, v, v, v);
+}
+
+// A ring of RING shared buffers through which one warp streams ``items``
+// consecutive pieces of x, LEN floats each: piece k lands in buf[k % RING],
+// its copy the (k / RING)-th completion of that buffer's barrier. Called
+// before piece i is read, ring_top_up has lane 0 issue every piece up to
+// i + 1, so the next piece's copy is in flight while piece i is waited on
+// and read; a buffer is refilled only behind a __syncwarp (every lane has
+// read the piece it held) and the async-proxy fence. ring_wait waits for
+// piece i and returns its buffer.
+__device__ __forceinline__ void ring_init(uint64_t (&full)[RING], int lane) {
+    if (lane == 0)
+        for (int b = 0; b < RING; ++b) mbar_init(&full[b]);
+    __syncwarp();  // the barriers initialised before any lane waits
+}
+
+template <int LEN>
+__device__ __forceinline__ void ring_top_up(float (&buf)[RING][LEN], uint64_t (&full)[RING],
+                                            const float* x, int items, int i, int& issued,
+                                            int lane) {
+    for (; issued < items && issued <= i + 1; ++issued) {
+        const int b = issued % RING;
+        if (issued >= RING) {  // buffer b held piece issued - RING, read at an earlier trip
+            __syncwarp();
+            if (lane == 0) fence_proxy_async();
+        }
+        if (lane == 0) bulk_copy(buf[b], x + issued * LEN, sizeof(buf[b]), &full[b]);
+    }
+}
+
+template <int LEN>
+__device__ __forceinline__ const float* ring_wait(float (&buf)[RING][LEN],
+                                                  uint64_t (&full)[RING], int i) {
+    barrier_wait(&full[i % RING], (i / RING) & 1);
+    return buf[i % RING];
 }
 
 }  // namespace
@@ -216,20 +256,22 @@ terra_probe_hbm_to_smem_i32_loop_kernel(const int32_t* __restrict__ x,
 }
 
 // probe_smem_dma_in_while: four iterations, each copies row i of x (8, 128)
-// f32 into a (1, 128) scratch and adds scr[0, 0].
-extern "C" __global__ void __launch_bounds__(BLOCK)
+// f32 into a (1, 128) scratch and adds scr[0, 0]. One warp; row i sits in
+// buffer i % RING of a ring of row buffers.
+extern "C" __global__ void __launch_bounds__(32)
 terra_probe_smem_dma_in_while_kernel(const float* __restrict__ x, float* __restrict__ out) {
-    __shared__ __align__(128) float scr[W];
-    __shared__ uint64_t bar;
-    barrier_init(&bar);
+    __shared__ __align__(128) float row[RING][W];
+    __shared__ uint64_t full[RING];
+    const int lane = threadIdx.x;
+    ring_init(full, lane);
     float acc = 0.0f;
-    for (int i = 0; i < 4; ++i) {
-        if (i > 0) __syncthreads();  // every thread has read scr before it is overwritten
-        bulk_load(scr, x + i * W, sizeof(scr), &bar);
-        barrier_wait(&bar, i & 1);
-        acc += scr[0];
+    int issued = 0;
+#pragma unroll  // straight-line code; as a loop the ring is ~0.3 us slower (source note)
+    for (int i = 0; i < DMA_TRIPS; ++i) {
+        ring_top_up(row, full, x, DMA_TRIPS, i, issued, lane);
+        acc += ring_wait(row, full, i)[0];
     }
-    fill(out, acc);
+    fill4(out, acc);
 }
 
 // rowmask _run: rows 0-7 of x (16, 128) f32 staged in (8, 128) scratch, then
@@ -284,35 +326,37 @@ terra_probe_rowmask_kernel(const float* __restrict__ x, float* __restrict__ out,
 // rowmask probe4: rows 0-7 of x (16, 128) f32; three mask planes
 // m_s = where(x > 600 + 100 s, x, 1e9) stored into a (4, 8, 128) scratch in
 // a loop, then out[r] = sum of m_s[r] over the planes whose row r has a lane
-// below 1e9 (planes added in order 0, 1, 2).
+// below 1e9 (planes added to 0 in order 0, 1, 2). Row r of every plane
+// depends on row r of x alone, so warp r stages that row on its own
+// barrier, saves its row of each plane and reads it back, and takes the
+// row bit as its own ballot; lane l holds columns 4l .. 4l+3.
 extern "C" __global__ void __launch_bounds__(BLOCK)
 terra_probe_rowmask_planes_kernel(const float* __restrict__ x, float* __restrict__ out) {
     __shared__ __align__(128) float plane[ROWS][W];
-    __shared__ float mask[4][ROWS][W];
-    __shared__ uint64_t bar;
-    __shared__ uint32_t bits[3];
-    if (threadIdx.x < 3) bits[threadIdx.x] = 0;
-    barrier_init(&bar);
-    bulk_load(plane, x, sizeof(plane), &bar);
-    barrier_wait(&bar, 0);
+    __shared__ float4 mask[4][ROWS][W / 4];
+    __shared__ uint64_t bar[ROWS];
     const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int s = 0; s < 3; ++s) {
-        const float thr = 600.0f + 100.0f * static_cast<float>(s);
-        for (int c = lane; c < W; c += 32) {
-            const float v = plane[r][c];
-            mask[s][r][c] = v > thr ? v : 1e9f;
-        }
+    if (lane == 0) {
+        mbar_init(&bar[r]);
+        bulk_copy(plane[r], x + r * W, sizeof(plane[r]), &bar[r]);
     }
-    __syncthreads();
-    for (int s = 0; s < 3; ++s)
-        if (row_any(mask[s][r], [](float v) { return v < 1e9f; }) && lane == 0)
-            atomicOr(&bits[s], 1u << r);
-    __syncthreads();
-    float* orow = out + r * W;
-    for (int c = lane; c < W; c += 32) orow[c] = 0.0f;
-    for (int s = 0; s < 3; ++s)
-        if ((bits[s] >> r) & 1u)
-            for (int c = lane; c < W; c += 32) orow[c] = orow[c] + mask[s][r][c];
+    __syncwarp();  // the warp's barrier initialised before its lanes wait
+    barrier_wait(&bar[r], 0);
+    const float4 v = reinterpret_cast<const float4*>(plane[r])[lane];
+    for (int s = 0; s < 3; ++s) {
+        const float t = 600.0f + 100.0f * static_cast<float>(s);
+        mask[s][r][lane] = make_float4(v.x > t ? v.x : 1e9f, v.y > t ? v.y : 1e9f,
+                                       v.z > t ? v.z : 1e9f, v.w > t ? v.w : 1e9f);
+    }
+    __syncwarp();  // the planes saved before the drain reads them back
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = 0; s < 3; ++s) {
+        const float4 m = mask[s][r][lane];
+        const bool hit = m.x < 1e9f || m.y < 1e9f || m.z < 1e9f || m.w < 1e9f;
+        if (__ballot_sync(FULL, hit))  // bit r of plane s
+            o = make_float4(o.x + m.x, o.y + m.y, o.z + m.z, o.w + m.w);
+    }
+    reinterpret_cast<float4*>(out + r * W)[lane] = o;
 }
 
 // paged _run: three iterations, each stages rows 4i..4i+3 of x (16, 128)
@@ -320,32 +364,20 @@ terra_probe_rowmask_planes_kernel(const float* __restrict__ x, float* __restrict
 //   probe 1: min(row 1);  probe 2: scr[1, 3];  probe 3: min(row 2);
 //   probe 4: link = int(min(row 2)); where link > 4 it is pushed onto an
 //            8-entry shared stack at slot i and the slot is read back, else 0.
-// One warp; page i sits in buffer i % RING, its copy the (i / RING)-th
-// completion of that buffer's barrier.
+// One warp; page i sits in buffer i % RING of a ring of page buffers.
 extern "C" __global__ void __launch_bounds__(32)
 terra_probe_paged_kernel(const float* __restrict__ x, float* __restrict__ out, int probe) {
-    __shared__ __align__(128) float page[RING][PAGE_ROWS][W];
+    __shared__ __align__(128) float page[RING][PAGE_ROWS * W];
     __shared__ uint64_t full[RING];
     __shared__ int32_t stack[8];
     const int lane = threadIdx.x;
-    if (lane == 0)
-        for (int b = 0; b < RING; ++b) mbar_init(&full[b]);
-    __syncwarp();  // the barriers initialised before any lane waits
+    ring_init(full, lane);
     float acc = 0.0f;
     int issued = 0;
+#pragma unroll  // straight-line code; as a loop the ring is ~0.3 us slower (source note)
     for (int i = 0; i < PAGES; ++i) {
-        for (; issued < PAGES && issued <= i + 1; ++issued) {  // pages i and i + 1 in flight
-            const int b = issued % RING;
-            if (issued >= RING) {  // buffer b held page issued - RING, read at an earlier trip
-                __syncwarp();
-                if (lane == 0) fence_proxy_async();
-            }
-            if (lane == 0)
-                bulk_copy(page[b], x + issued * PAGE_ROWS * W, sizeof(page[b]), &full[b]);
-        }
-        const int b = i % RING;
-        barrier_wait(&full[b], (i / RING) & 1);
-        const float* scr = &page[b][0][0];
+        ring_top_up(page, full, x, PAGES, i, issued, lane);  // pages i and i + 1 in flight
+        const float* scr = ring_wait(page, full, i);
         float s;
         if (probe == 1) {
             s = row_min4(scr + W);
@@ -366,8 +398,8 @@ terra_probe_paged_kernel(const float* __restrict__ x, float* __restrict__ out, i
 }
 
 // The launch floor: a probe's launch shape (one block of ``block`` threads,
-// 256 or the paged kernel's 32; the same arguments) and no work. Replaces
-// no TPU kernel; chip_smoke.py times it beside the probes.
+// 256, or 32 for the one-warp kernels; the same arguments) and no work.
+// Replaces no TPU kernel; chip_smoke.py times it beside the probes.
 extern "C" __global__ void __launch_bounds__(BLOCK)
 terra_probe_empty_kernel(const float* __restrict__, float* __restrict__) {}
 
@@ -385,8 +417,7 @@ extern "C" int terra_probe_hbm_to_smem_i32_loop(const int32_t* x, int32_t* out, 
 }
 
 extern "C" int terra_probe_smem_dma_in_while(const float* x, float* out, void* stream) {
-    terra_probe_smem_dma_in_while_kernel<<<1, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, out);
+    terra_probe_smem_dma_in_while_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
     return static_cast<int>(cudaGetLastError());
 }
 

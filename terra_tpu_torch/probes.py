@@ -9,7 +9,16 @@ loop), scalar reads of the staged words, row reductions, row-activity
 bits and per-row masked stores. ``csrc/pattern_probes.cu`` asks the same
 of Hopper with one kernel per ``pallas_call`` site: a TMA bulk copy into
 shared memory completed on an mbarrier, warp reductions, warp votes and
-predicated row stores (the source note says how each pattern maps).
+predicated row stores (the source note says how each pattern maps). The
+copy-in-a-loop and paged kernels are one warp that streams rows or pages
+through a ring of two shared buffers, one mbarrier each, issuing the next
+copy inside the loop before the current piece is read and reusing a
+buffer behind ``__syncwarp`` and the async-proxy fence. The row-mask and
+mask-plane kernels give warp r output row r: its own copy of the row on
+its own barrier, its own ballot for the row bit, each output word stored
+once. ``hbm_to_smem`` and the i32 loop are still one block-wide copy. On
+the H100 every kernel takes 2.0-2.9 us a launch on the device against an
+empty kernel's 1.6-1.9 (PERF.md section 6).
 
 Each of the eleven probe bodies has a wrapper here (:data:`BODIES` names
 them) and a plain PyTorch version of the same function. A wrapper takes the
@@ -42,10 +51,10 @@ from ._build import build_shared, nvcc
 
 __all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "run_floor", "launch", "make_input",
            "seeded_input", "load_kernel", "load_library", "kernel_path", "redesign_rank", "sass",
-           "launches", "ROWS", "W", "SEEDS"]
+           "parse_sass", "launches", "ROWS", "W", "SEEDS"]
 
 ROWS, W = 8, 128  # the (8, 128) output block of every probe
-SEEDS = 8  # seeded inputs each paged and row-mask body is held to (seeds 0 .. SEEDS - 1)
+SEEDS = 8  # seeded inputs each body is held to (seeds 0 .. SEEDS - 1)
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "pattern_probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -164,7 +173,7 @@ class Body:
 KERNELS = {
     "probe_hbm_to_smem": ("terra_probe_hbm_to_smem", False, 256),
     "probe_hbm_to_smem_i32_loop": ("terra_probe_hbm_to_smem_i32_loop", False, 256),
-    "probe_smem_dma_in_while": ("terra_probe_smem_dma_in_while", False, 256),
+    "probe_smem_dma_in_while": ("terra_probe_smem_dma_in_while", False, 32),
     "rowmask_patterns": ("terra_probe_rowmask", True, 256),
     "rowmask_mask_planes": ("terra_probe_rowmask_planes", False, 256),
     "paged_patterns": ("terra_probe_paged", True, 32),
@@ -352,8 +361,17 @@ def redesign_rank(rows: dict) -> list:
 
 
 def sass(path: str) -> dict:
-    """{kernel: its SASS text} of a built library (``cuobjdump -sass``)."""
+    """{kernel: its SASS text} of a built library (``cuobjdump -sass``), as
+    :func:`parse_sass` gives it."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
-                          check=True).stdout
-    return {b.split()[0]: b for b in re.split(r"\n\s*Function : ", text)[1:]}
+    return parse_sass(subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                                     check=True).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """{kernel: its SASS text} of a ``cuobjdump -sass`` dump, each line's
+    runs of spaces collapsed to one: the dump pads every kernel's columns
+    to the widest instruction in the whole library, so a kernel's text
+    would otherwise change with its neighbours."""
+    return {b.split()[0]: "\n".join(" ".join(ln.split()) for ln in b.splitlines())
+            for b in re.split(r"\n\s*Function : ", text)[1:]}

@@ -90,10 +90,11 @@ def test_wrapper_refuses_wrong_input(bad):
 
 
 @pytest.mark.parametrize("seed", range(probes.SEEDS))
-@pytest.mark.parametrize("body", [b for b in CASES if b.startswith(("rowmask/", "paged/"))])
+@pytest.mark.parametrize("body", ["smem_dma/smem_dma_in_while",
+                                  *(b for b in CASES if b.startswith(("rowmask/", "paged/")))])
 def test_seeded_probe_matches_pallas_interpret(body, seed, monkeypatch):
-    """The seeded inputs chip_smoke.py's phase 5 holds the paged and row-mask
-    kernels to, through the plain version and the reference's probe."""
+    """The seeded inputs chip_smoke.py's phase 5 holds the probe kernels to,
+    through the plain version and the reference's probe."""
     x = probes.seeded_input(body, seed, device="cpu")
     assert bool((x.abs() < 2**24).all())
     ref = _reference_output(body, monkeypatch, x.numpy())
@@ -110,6 +111,17 @@ def test_seeded_inputs_reach_both_branches():
         assert bool((links <= 4).any()) and bool((links > 4).any())
         rows = (probes.seeded_input("rowmask/probe3", seed, "cpu")[:8] > 700).any(dim=1)
         assert 0 < int(rows.sum()) < 8
+
+
+def test_seeded_mask_planes_reach_both_gates():
+    """Rowmask probe 4's seeded rows cross each mask plane's threshold
+    (600, 700, 800) in some rows and not in others, so every input takes
+    both sides of every plane's row gate."""
+    for seed in range(probes.SEEDS):
+        x = probes.seeded_input("rowmask/probe4", seed, "cpu")[:8]
+        for s in range(3):
+            rows = (x > 600.0 + 100.0 * s).any(dim=1)
+            assert 0 < int(rows.sum()) < 8, (seed, s)
 
 
 def test_redesign_rank():
@@ -137,6 +149,20 @@ def test_floor_and_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         probes.launch("paged/probe1", x)
     assert torch.equal(probes.run("paged/probe1", x), probes.run_plain("paged/probe1", x))
+
+
+def test_parse_sass_ignores_column_padding():
+    """cuobjdump pads every kernel's columns to the widest instruction of
+    the library, so a kernel left alone must read the same beside a
+    neighbour with longer instructions, and a changed one must not."""
+    def dump(pad, mov="MOV R0, 0x400"):
+        return (f"\tcode for sm_90a\n\t\tFunction : k_kernel\n\t.headerflags @\"EF_CUDA_SM90\"\n"
+                f"        /*0000*/{' ' * pad}{mov} ;{' ' * pad}/* 0x0000040000008802 */\n"
+                f"\t\tFunction : other_kernel\n        /*0000*/ EXIT ;\n")
+    a, b = probes.parse_sass(dump(19)), probes.parse_sass(dump(23))
+    assert sorted(a) == ["k_kernel", "other_kernel"]
+    assert a == b
+    assert probes.parse_sass(dump(19, "MOV R1, 0x400"))["k_kernel"] != a["k_kernel"]
 
 
 def test_block_sizes_match_the_launchers():
