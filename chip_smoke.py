@@ -92,8 +92,10 @@ exits non-zero (there is no CPU fallback):
      integrators, under the reference tests' budgets;
   5. the pattern probes: each of the eleven bodies through its
      ``terra_tpu_torch.scripts`` entry point on the card (it must print OK),
-     held word for word against its plain PyTorch version on the same input
-     and on 8 seeded inputs (0 differing words); each kernel's device time
+     held word for word against its plain PyTorch version on the same input,
+     on 8 seeded inputs and, for the i32 loop, on its 10 trip-count edges
+     (0 differing words); each kernel's device time (the i32 loop's also at
+     128 trips)
      (CUDA events over 200 launches back to back behind a sleep backlog),
      its time at the host's launch rate (``host_ms``), the plain version's, and the launch
      floor (an empty kernel launched with the kernel's block size, timed
@@ -1296,7 +1298,9 @@ def _probe_phase(torch):
     launch rate, ``floor_ms`` the empty kernel's device time at the
     kernel's block size; a kernel serving several bodies reports its
     slowest body's times. Every body is also held to the plain version on
-    ``probes.SEEDS`` seeded inputs."""
+    ``probes.SEEDS`` seeded inputs and on its ``probes.edge_inputs`` (the
+    loop probe's trip counts), and the loop probe is also timed at 128
+    trips (``ms_n128``)."""
     import importlib
 
     from terra_tpu_torch import probes
@@ -1320,13 +1324,21 @@ def _probe_phase(torch):
         plain = probes.run_plain(name, x)
         words = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
         err = float((got.double() - plain.double()).abs().max())
-        seeded = []
-        for seed in range(probes.SEEDS):
-            xs = probes.seeded_input(name, seed, "cuda")
+        edges = probes.edge_inputs(name, "cuda")
+
+        def differing(xs):
+            nonlocal err
             got_s, plain_s = probes.launch(name, xs), probes.run_plain(name, xs)
-            seeded.append(int((got_s.view(torch.int32) != plain_s.view(torch.int32)).sum()))
             err = max(err, float((got_s.double() - plain_s.double()).abs().max()))
+            return int((got_s.view(torch.int32) != plain_s.view(torch.int32)).sum())
+
+        seeded = [differing(probes.seeded_input(name, s, "cuda")) for s in range(probes.SEEDS)]
+        edge_words = [differing(xs) for xs in edges.values()]
         kernel_ms = _ms(lambda: probes.run(name, x), 200, backlog=True)
+        times = {"ms": kernel_ms}
+        if edges:
+            times["ms_n128"] = _ms(lambda: probes.launch(name, edges[probes.W]), 200,
+                                   backlog=True)
         host_ms = _ms(lambda: probes.run(name, x), 200)
         plain_ms = _ms(lambda: probes.run_plain(name, x), 200)
         bound_ms, bound_by = _bound(body.staged_rows * probes.W * 4 + got.numel() * 4, body.ops)
@@ -1334,16 +1346,19 @@ def _probe_phase(torch):
         print(f"phase 5: {name} ({body.kernel}): OK {ok}, launches {n_launch}, words differing "
               f"from the plain version {words}"
               + f", on {len(seeded)} seeded inputs {seeded}"
-              + f"; device {kernel_ms:.5f} ms (floor {floor_ms:.5f}), host rate {host_ms:.5f} "
+              + (f", on the trip counts {list(edges)} {edge_words}" if edges else "")
+              + f"; device {kernel_ms:.5f} ms"
+              + (f" ({times['ms_n128']:.5f} at {probes.W} trips)" if edges else "")
+              + f" (floor {floor_ms:.5f}), host rate {host_ms:.5f} "
               f"ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e6:.2f} ns ({bound_by})",
               flush=True)
-        if not ok or words or any(seeded) or n_launch != 1:
+        if not ok or words or any(seeded) or any(edge_words) or n_launch != 1:
             raise AssertionError(f"probe {name} failed on the card")
         k = out.setdefault(body.kernel, {"launches": 0, "max_abs_err": 0.0, "ms": 0.0,
                                          "replaces": body.replaces, "bodies": {}})
         k["launches"] += n_launch
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        k["bodies"][name] = {"ms": kernel_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+        k["bodies"][name] = {**times, "host_ms": host_ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms}
         if kernel_ms >= k["ms"]:
             k.update(ms=kernel_ms, host_ms=host_ms, floor_ms=floor_ms, plain_ms=plain_ms,

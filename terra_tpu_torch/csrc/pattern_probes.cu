@@ -27,7 +27,8 @@
 //     across the generic and async proxies).
 //   * scalar reads of SMEM scratch: shared-memory reads by every thread
 //     (broadcast); the trip count of the i32 loop comes from the staged
-//     words, as on the TPU.
+//     words, as on the TPU, and stops at the row's 128 words (past them
+//     the TPU's read is out of bounds).
 //   * jnp.min over a (128,) row: a warp reduction with __shfl_xor_sync.
 //   * row-activity bits: __ballot_sync per row.
 //   * pl.when row stores: per-row stores whose value the row's bit selects.
@@ -42,10 +43,19 @@
 // only cut the round trips, the block-wide synchronisation and the
 // instructions around them.
 //
-// Two kernels are still one block of 8 warps, one copy at a time that
-// every thread waits on behind a block barrier, the (8, 128) output written
-// by all 256 threads: probe_hbm_to_smem and probe_hbm_to_smem_i32_loop. The
-// others are designed for Hopper:
+// Every kernel is designed for Hopper:
+//   * terra_probe_hbm_to_smem_kernel and
+//     terra_probe_hbm_to_smem_i32_loop_kernel: one warp and one copy
+//     (warp_load): lane 0 initialises the barrier and issues the copy into
+//     a buffer nothing has touched, so no proxy fence comes first, and no
+//     block barrier; every lane waits on parity 0 and reads the staged
+//     words as broadcasts. The i32 loop's trip count n = scr[0, 0] still
+//     gates which words are summed, but lane l sums only the four words
+//     scr[i % 4, i] for i = l, l + 32, l + 64, l + 96 below n, and the warp
+//     adds the 32 partial sums (__reduce_add_sync): int32 addition wraps
+//     in two's complement and is associative, so every order gives the
+//     serial loop's bits, without its chain of up to 128 dependent shared
+//     loads and adds. The output is written as 16-byte stores (fill4).
 //   * terra_probe_paged_kernel and terra_probe_smem_dma_in_while_kernel:
 //     one warp (the body is one scalar a page or a row) and a ring of two
 //     buffers with one mbarrier each (ring_top_up, ring_wait). Inside the
@@ -83,7 +93,10 @@
 // phase 5 and scripts/probe_ab.py): each kernel 2.0-2.9 us a launch against
 // an empty kernel's 1.6-1.9, which moves up to 0.25 us from call to call.
 // In one call against the block-wide designs they replace, the ring cut
-// dma-in-while by 0.38 us and the per-warp rows the mask planes by 0.37.
+// dma-in-while by 0.38 us and the per-warp rows the mask planes by 0.37;
+// one warp cut the i32 loop by 0.27 us at 5 trips and 0.76 at 128 (the
+// serial loop's chain), hbm_to_smem by 0.15, and the straight-line fill4
+// every kernel that stores through it by 0.05-0.17.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC -Xptxas -v
@@ -137,21 +150,6 @@ __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Block-wide forms for the one-copy kernels: thread 0 initialises, every
-// thread passes the block barrier.
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-    if (threadIdx.x == 0) mbar_init(bar);
-    __syncthreads();
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-    if (threadIdx.x == 0) {
-        fence_proxy_async();
-        bulk_copy(dst, src, bytes, bar);
-    }
-}
-
 // The .wait(): spin until the phase of parity ``parity`` completes, i.e.
 // the copy's bytes have landed.
 __device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
@@ -167,6 +165,20 @@ __device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
     } while (!done);
 }
 
+// One copy that one warp waits on, on the warp's own barrier: lane 0
+// initialises the barrier and copies into a buffer nothing has touched (so
+// no proxy fence), the __syncwarp orders the initialisation before any
+// lane's wait. No other warp takes part.
+__device__ __forceinline__ void warp_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    if ((threadIdx.x & 31) == 0) {
+        mbar_init(bar);
+        bulk_copy(dst, src, bytes, bar);
+    }
+    __syncwarp();
+    barrier_wait(bar, 0);
+}
+
 __device__ __forceinline__ float warp_min(float v) {
     for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
     return v;
@@ -179,15 +191,19 @@ __device__ __forceinline__ float row_min4(const float* row) {
     return warp_min(fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
 }
 
-template <typename T>
-__device__ __forceinline__ void fill(T* __restrict__ out, T v) {
-    for (int i = threadIdx.x; i < ROWS * W; i += BLOCK) out[i] = v;
-}
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int32_t> { using type = int4; };
 
-// The (8, 128) block set to ``v`` by one warp, 16 bytes a store.
-__device__ __forceinline__ void fill4(float* __restrict__ out, float v) {
-    float4* o = reinterpret_cast<float4*>(out);
-    for (int i = threadIdx.x & 31; i < ROWS * W / 4; i += 32) o[i] = make_float4(v, v, v, v);
+// The (8, 128) block set to ``v`` by one warp, 16 bytes a store: eight
+// stores a lane, straight-line (as a loop from the lane's index the
+// compiler keeps a trip counter, remainder branches and four copies of v).
+template <typename T>
+__device__ __forceinline__ void fill4(T* __restrict__ out, T v) {
+    using V = typename Vec4<T>::type;
+    V* o = reinterpret_cast<V*>(out) + (threadIdx.x & 31);
+#pragma unroll
+    for (int k = 0; k < ROWS * W / 4 / 32; ++k) o[32 * k] = V{v, v, v, v};
 }
 
 // A ring of RING shared buffers through which one warp streams ``items``
@@ -228,31 +244,34 @@ __device__ __forceinline__ const float* ring_wait(float (&buf)[RING][LEN],
 }  // namespace
 
 // probe_hbm_to_smem: rows 2-3 of x (64, 128) f32 into (2, 128) scratch;
-// out = scr[0,0] + scr[1,1] + scr[0,127] everywhere.
-extern "C" __global__ void __launch_bounds__(BLOCK)
+// out = scr[0,0] + scr[1,1] + scr[0,127] everywhere. One warp.
+extern "C" __global__ void __launch_bounds__(32)
 terra_probe_hbm_to_smem_kernel(const float* __restrict__ x, float* __restrict__ out) {
     __shared__ __align__(128) float scr[2][W];
     __shared__ uint64_t bar;
-    barrier_init(&bar);
-    bulk_load(scr, x + 2 * W, sizeof(scr), &bar);
-    barrier_wait(&bar, 0);
-    fill(out, scr[0][0] + scr[1][1] + scr[0][W - 1]);
+    warp_load(scr, x + 2 * W, sizeof(scr), &bar);
+    fill4(out, scr[0][0] + scr[1][1] + scr[0][W - 1]);
 }
 
 // probe_hbm_to_smem_i32_loop: rows 0-3 of x (8, 128) i32 into (4, 128)
 // scratch; n = scr[0,0]; acc = sum over i < n of scr[i % 4, i] (i < 128).
-extern "C" __global__ void __launch_bounds__(BLOCK)
+// One warp; lane l takes i = l + 32 k (row l % 4), then a warp sum.
+extern "C" __global__ void __launch_bounds__(32)
 terra_probe_hbm_to_smem_i32_loop_kernel(const int32_t* __restrict__ x,
                                         int32_t* __restrict__ out) {
     __shared__ __align__(128) int32_t scr[4][W];
     __shared__ uint64_t bar;
-    barrier_init(&bar);
-    bulk_load(scr, x, sizeof(scr), &bar);
-    barrier_wait(&bar, 0);
+    const int lane = threadIdx.x;
+    warp_load(scr, x, sizeof(scr), &bar);
     const int32_t n = scr[0][0];
     int32_t acc = 0;
-    for (int32_t i = 0; i < n && i < W; ++i) acc += scr[i % 4][i];
-    fill(out, acc);
+#pragma unroll
+    for (int k = 0; k < W / 32; ++k) {
+        const int i = lane + 32 * k;
+        const int32_t v = scr[lane & 3][i];  // i % 4 == lane % 4
+        acc += i < n ? v : 0;
+    }
+    fill4(out, __reduce_add_sync(FULL, acc));
 }
 
 // probe_smem_dma_in_while: four iterations, each copies row i of x (8, 128)
@@ -406,12 +425,12 @@ terra_probe_empty_kernel(const float* __restrict__, float* __restrict__) {}
 // Launchers: x and out are the device pointers of the wrappers' checked
 // tensors; ``probe`` selects the body where one site serves several.
 extern "C" int terra_probe_hbm_to_smem(const float* x, float* out, void* stream) {
-    terra_probe_hbm_to_smem_kernel<<<1, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+    terra_probe_hbm_to_smem_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int terra_probe_hbm_to_smem_i32_loop(const int32_t* x, int32_t* out, void* stream) {
-    terra_probe_hbm_to_smem_i32_loop_kernel<<<1, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+    terra_probe_hbm_to_smem_i32_loop_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         x, out);
     return static_cast<int>(cudaGetLastError());
 }

@@ -16,9 +16,11 @@ copy inside the loop before the current piece is read and reusing a
 buffer behind ``__syncwarp`` and the async-proxy fence. The row-mask and
 mask-plane kernels give warp r output row r: its own copy of the row on
 its own barrier, its own ballot for the row bit, each output word stored
-once. ``hbm_to_smem`` and the i32 loop are still one block-wide copy. On
-the H100 every kernel takes 2.0-2.9 us a launch on the device against an
-empty kernel's 1.6-1.9 (PERF.md section 6).
+once. ``hbm_to_smem`` and the i32 loop are one warp and one copy, no
+block barrier; the i32 loop's lanes each sum at most four of the staged
+words its trip count selects, and a warp reduction adds them. On the H100
+every kernel takes 2.0-2.9 us a launch on the device against an empty
+kernel's 1.6-1.9 (PERF.md section 6).
 
 Each of the eleven probe bodies has a wrapper here (:data:`BODIES` names
 them) and a plain PyTorch version of the same function. A wrapper takes the
@@ -26,8 +28,9 @@ plain version for a CPU tensor; for a CUDA tensor it launches the kernel
 on the current stream, raises if the launch fails, and never falls back.
 :data:`launches` counts kernel launches. Every value involved is an
 integer below 2^24 (or 1e9 plus one), exact in f32, so kernel and plain
-version agree word for word, on the reference's inputs (:func:`make_input`)
-and on :data:`SEEDS` seeded random ones (:func:`seeded_input`).
+version agree word for word, on the reference's inputs (:func:`make_input`),
+on :data:`SEEDS` seeded random ones (:func:`seeded_input`) and, for the
+loop probe, on its trip-count edges (:func:`edge_inputs`).
 :func:`run_floor` launches an empty kernel of a probe's launch shape, the
 floor its device time is read against; :func:`redesign_rank` orders
 kernels by what a redesign could save on the path that launched them;
@@ -50,11 +53,14 @@ import torch
 from ._build import build_shared, nvcc
 
 __all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "run_floor", "launch", "make_input",
-           "seeded_input", "load_kernel", "load_library", "kernel_path", "redesign_rank", "sass",
-           "parse_sass", "launches", "ROWS", "W", "SEEDS"]
+           "seeded_input", "edge_inputs", "load_kernel", "load_library", "kernel_path",
+           "redesign_rank", "sass", "parse_sass", "launches", "ROWS", "W", "SEEDS", "LOOP",
+           "LOOP_EDGES"]
 
 ROWS, W = 8, 128  # the (8, 128) output block of every probe
 SEEDS = 8  # seeded inputs each body is held to (seeds 0 .. SEEDS - 1)
+LOOP = "smem_dma/hbm_to_smem_i32_loop"  # the body whose trip count is read from its input
+LOOP_EDGES = (-1, 0, 1, 31, 32, 33, 127, 128, 129, 130)  # trip counts of edge_inputs
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "pattern_probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -171,8 +177,8 @@ class Body:
 
 # kernel name -> (C launcher, whether it takes a body number, threads of its one block)
 KERNELS = {
-    "probe_hbm_to_smem": ("terra_probe_hbm_to_smem", False, 256),
-    "probe_hbm_to_smem_i32_loop": ("terra_probe_hbm_to_smem_i32_loop", False, 256),
+    "probe_hbm_to_smem": ("terra_probe_hbm_to_smem", False, 32),
+    "probe_hbm_to_smem_i32_loop": ("terra_probe_hbm_to_smem_i32_loop", False, 32),
     "probe_smem_dma_in_while": ("terra_probe_smem_dma_in_while", False, 32),
     "rowmask_patterns": ("terra_probe_rowmask", True, 256),
     "rowmask_mask_planes": ("terra_probe_rowmask_planes", False, 256),
@@ -255,6 +261,21 @@ def seeded_input(name: str, seed: int, device="cuda") -> torch.Tensor:
             x[0, 0] = rng.integers(0, W + 3)
     return torch.as_tensor(x.astype(np.int32 if body.dtype == torch.int32 else np.float32),
                            device=device)
+
+
+def edge_inputs(name: str, device="cuda") -> dict:
+    """{n: seed 0's input with x[0, 0] = n} for n in :data:`LOOP_EDGES` if
+    ``name`` is the loop probe, else {}. Those trip counts are the edges of
+    the kernel's split of the loop over a warp's lanes (none, one, 31-33,
+    127-128 words) and of the port's rule past the row's 128 words, where
+    the reference reads out of bounds: the loop stops at 128 trips."""
+    if name != LOOP:
+        return {}
+    base = seeded_input(name, 0, device)
+    edges = {n: base.clone() for n in LOOP_EDGES}
+    for n, x in edges.items():
+        x[0, 0] = n
+    return edges
 
 
 # ------------------------------------------------------------------ kernels

@@ -8,10 +8,12 @@ show``) and this checkout's ``csrc/pattern_probes.cu`` at once, with the
 probes' nvcc flags; prints each build's registers and shared memory per
 kernel and which kernels compiled to the parent's SASS instruction for
 instruction; holds both builds' kernels to the plain versions on the
-reference's input and on ``probes.SEEDS`` seeded ones (0 differing words,
-or it exits 1 before timing); then times every body on the device (CUDA
-events over ``--reps`` launches back to back behind a sleep backlog, so
-the host's launch rate is not what is timed) with the builds in turns,
+reference's input, on ``probes.SEEDS`` seeded ones and on the loop
+probe's trip-count edges (0 differing words, or it exits 1 before
+timing); then times every body on the reference's input, and the loop
+probe also at n = 128 trips, on the device (CUDA events over ``--reps``
+launches back to back behind a sleep backlog, so the host's launch rate
+is not what is timed) with the builds in turns,
 parent, new, new, parent, and the launch floor (``terra_probe_empty`` at
 each probe block size) at both ends. Prints the card's name and power
 limit and one JSON object as its last line.
@@ -68,22 +70,27 @@ def main(argv=None) -> int:
 
     words = {b: {} for b in libs}
     for name in probes.BODIES:
-        inputs = [probes.make_input(name, "cuda")] + [probes.seeded_input(name, s, "cuda")
-                                                      for s in range(probes.SEEDS)]
+        inputs = [probes.make_input(name, "cuda"),
+                  *(probes.seeded_input(name, s, "cuda") for s in range(probes.SEEDS)),
+                  *probes.edge_inputs(name, "cuda").values()]
         plain = [probes.run_plain(name, x) for x in inputs]
         for b, lib in libs.items():
             words[b][name] = [int((probes.launch(name, x, lib).view(torch.int32)
                                    != p.view(torch.int32)).sum()) for x, p in zip(inputs, plain)]
     bad = {b: {n: w for n, w in ws.items() if any(w)} for b, ws in words.items()}
-    print(f"words differing from the plain version (reference input + {probes.SEEDS} seeded), by "
-          f"build: { {b: bad[b] or 0 for b in bad} }", flush=True)
+    print(f"words differing from the plain version (reference input + {probes.SEEDS} seeded + "
+          f"{len(probes.LOOP_EDGES)} loop edges), by build: { {b: bad[b] or 0 for b in bad} }",
+          flush=True)
     if any(bad.values()):
         return 1
 
     order = ["parent", "new", "new", "parent"]
     x0 = probes.make_input("paged/probe1", "cuda")
     threads = sorted({t for _, _, t in probes.KERNELS.values()}, reverse=True)
-    times = {name: {b: [] for b in libs} for name in probes.BODIES}
+    timed = {name: (name, probes.make_input(name, "cuda")) for name in probes.BODIES}
+    timed[f"{probes.LOOP} n={probes.W}"] = (probes.LOOP,
+                                            probes.edge_inputs(probes.LOOP, "cuda")[probes.W])
+    times = {label: {b: [] for b in libs} for label in timed}
     floor = {t: [] for t in threads}
 
     def time_floor():
@@ -91,12 +98,14 @@ def main(argv=None) -> int:
             floor[t].append(device_ms(lambda: probes.run_floor(x0, t, libs["new"]), args.reps,
                                       backlog=True))
 
+    # the process's first timing reads high (4.6 us for a 1.8 us floor on
+    # the H100): one untimed pass first
+    device_ms(lambda: probes.run_floor(x0, threads[0], libs["new"]), args.reps, backlog=True)
     time_floor()
     for b in order:
-        for name in probes.BODIES:
-            x = probes.make_input(name, "cuda")
-            times[name][b].append(device_ms(lambda: probes.launch(name, x, libs[b]), args.reps,
-                                            backlog=True))
+        for label, (name, x) in timed.items():
+            times[label][b].append(device_ms(lambda: probes.launch(name, x, libs[b]), args.reps,
+                                             backlog=True))
     time_floor()
 
     smi = card()
