@@ -212,7 +212,16 @@ exits non-zero (there is no CPU fallback):
      grad_chunks 2, on 4 gloo ranks and at (1, 1) on one NCCL rank against
      the same bodies run uncaptured: gradients and the parameters after 2
      Adam steps bit for bit, ms per step per rank; 10e a host read planted
-     in the loss must make the capture raise, naming the stage.
+     in the loss must make the capture raise, naming the stage;
+  11. the port's ``bench.py``: ``python -m terra_tpu_torch.bench`` in a
+     subprocess (configs 1, 2, 3, 3i, 3s, 3b, 3m and 4 as the root
+     ``bench.py`` writes them), its lines and log printed with its
+     seconds; it must exit 0 with the eight metric lines, each value
+     finite and positive, no error line, and the OK lines of both kernel
+     gates (the kernel against brute force before config 3, against the
+     packet walk before 3m); each line's traversal launches (the gates'
+     left out) go to the main path's count and to the kernel line
+     (``bench_launches``).
 
 Phase 1 also builds both traversal kernels with the earlier 64-entry stack;
 phase 2b gates both kernels on a 1,700-triangle tree whose BVH4 walk needs
@@ -228,8 +237,11 @@ the training steps and ``recover`` runs of phase 6, the in-process
 command lines of phase 7 (7c and the CUDA half of 7d), and the sharded
 renders and training steps of the ranks of phases 8a and 8b (each rank
 counts its own launches and reports them), the graphed renders of phase
-9 and the graphed training steps of phase 10. A replayed graph adds the
-launches its capture recorded (``graphs.Unit``, ``graphs.TrainUnit``).
+9, the graphed training steps of phase 10 and the bench of phase 11 (its
+process counts its own launches and prints them on each line: a config's
+warm-up, its timed calls or renders and 3m's counted launch, not its
+gate). A replayed graph adds the launches its capture recorded
+(``graphs.Unit``, ``graphs.TrainUnit``, ``graphs.StagedUnit``).
 Each is run with the launch counts set to 0 and read after; launches that
 compare a kernel with its plain version, time it, or compare a sorted run
 with an unsorted one are not counted. The last three lines are a JSON
@@ -3181,6 +3193,50 @@ TWIN_TABLES = {
 }
 
 
+# --- phase 11: the port's bench.py ------------------------------------------
+
+BENCH_METRICS = ("cornell_fwd_mrays_per_chip", "cornell_ggx_mis_mrays", "courtyard_bvh_mrays",
+                 "courtyard_incoherent_mrays", "courtyard_bounce_mrays", "courtyard_render_mrays",
+                 "mega_bvh_mrays", "inverse_step_ms")
+BENCH_GATES = ("kernel gate ok", "wide-kernel gate ok")
+
+
+def _phase11(timeout: float = 900.0) -> tuple:
+    """Phase 11: ``python -m terra_tpu_torch.bench`` in a subprocess, its
+    lines printed. It must exit 0 with one line of each metric, each value
+    finite and positive, no error line, and both kernel gates' OK lines on
+    its standard error. Returns (launches {"binary", "bvh4"} summed over
+    the lines, {metric: line}, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "terra_tpu_torch.bench"], cwd=root,
+                          env=_cli_env(os.path.expanduser("~")), capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        print(f"  bench: {line}", flush=True)
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    for line in lines:
+        print(f"  {json.dumps(line)}", flush=True)
+    metrics = {x["metric"]: x for x in lines if x["unit"] != "error"}
+    errors = [x for x in lines if x["unit"] == "error"]
+    gates = [g for g in BENCH_GATES if any(x.strip().startswith(g)
+                                           for x in proc.stderr.splitlines())]
+    bad = [m for m, x in metrics.items() if not (np.isfinite(x["value"]) and x["value"] > 0)]
+    print(f"phase 11: python -m terra_tpu_torch.bench exited {proc.returncode} after "
+          f"{seconds:.1f} s; {len(metrics)} metric lines, {len(errors)} error lines, gates ok "
+          f"{gates}", flush=True)
+    if proc.returncode != 0 or errors or sorted(metrics) != sorted(BENCH_METRICS) or bad or \
+            len(lines) != len(BENCH_METRICS) or list(gates) != list(BENCH_GATES):
+        raise AssertionError(f"phase 11: the bench failed (exit {proc.returncode}, errors "
+                             f"{errors}, metrics {sorted(metrics)}, not finite and positive "
+                             f"{bad}, gates {gates})")
+    launches = collections.Counter()
+    for x in metrics.values():
+        launches.update(binary=x["launches"]["bvh_traverse"], bvh4=x["launches"]["bvh4_traverse"])
+    return launches, metrics, seconds
+
+
 def main() -> None:
     import torch
 
@@ -3491,6 +3547,13 @@ def main() -> None:
     print(f"phase 10: {time.perf_counter() - t10:.1f} s; every capture's warm-up ran under "
           f"torch.cuda.set_sync_debug_mode('error') and deterministic algorithms", flush=True)
 
+    # 11. the port's bench.py, every config, in a process of its own (this
+    # process's graph pools and cached blocks go first)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    launches11, bench11, _ = _phase11()
+    main_launches.update(launches11)
+
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
     if main_launches["binary"] <= 0 or main_launches["bvh4"] <= 0 or \
@@ -3518,6 +3581,7 @@ def main() -> None:
          "launches": main_launches["binary"], "max_abs_err": max_err,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": bin_bound[0], "bound_by": bin_bound[1],
          "library_ms": None, "library": walks, **main_path("bvh_traverse"),
+         "bench_launches": {m: x["launches"]["bvh_traverse"] for m, x in bench11.items()},
          "modes": {**{f"{label}/start_links": g["binary"] for label, g in starts.items()},
                    **{f"{label}/camera": v for label, v in binary_camera.items()}}},
         {"name": "bvh4_traverse", "route": "cuda",
@@ -3527,6 +3591,7 @@ def main() -> None:
          "ms": m4["ms"], "plain_ms": m4["plain_ms"], "bound_ms": m4["bound_ms"],
          "bound_by": m4["bound_by"],
          "library_ms": None, "library": walks, **main_path("bvh4_traverse"),
+         "bench_launches": {m: x["launches"]["bvh4_traverse"] for m, x in bench11.items()},
          "train_replay_launches": {b: train10[f"10b/{b}"]["launches_replay"][1]
                                    for b in ("sah", "lbvh")},
          "modes": {f"{label}/{mode}": v for label, g in gate4.items() for mode, v in g.items()}},

@@ -170,10 +170,11 @@ def _best_seconds(fn, device: torch.device, reps: int = 3) -> float:
     return best
 
 
-class _StageBody:
-    """One stage of :func:`stage_breakdown` as a ``graphs.staged_unit``
-    body: it runs ``fn()``, writes nothing outside its outputs, and keeps
-    ``fn`` (whose closure holds the probe rays the graph reads)."""
+class StageBody:
+    """A one-stage ``graphs.staged_unit`` body (a stage of
+    :func:`stage_breakdown`, the bench's timed traversal call): it runs
+    ``fn()``, writes nothing outside its outputs, and keeps ``fn`` (whose
+    closure holds the rays the graph reads)."""
 
     def __init__(self, name: str, fn, inputs):
         self.label, self.stages, self.inputs = f"stage {name}", (name,), inputs
@@ -247,7 +248,7 @@ def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536) -
     n = int(o.shape[0])
     for name, fn in (("raycast", stage_raycast), ("surface", stage_surface),
                      ("bounce", stage_bounce)):
-        unit = graphs.staged_unit(_StageBody(name, fn, o))
+        unit = graphs.staged_unit(StageBody(name, fn, o))
         best = _best_seconds(lambda: unit.replay(name), dev)
         out[name] = best
         profiler.add_sample(f"stage/{name}", best)

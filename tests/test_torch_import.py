@@ -16,6 +16,8 @@ FRONT_END = ["terra_tpu_torch.io.obj", "terra_tpu_torch.io.image", "terra_tpu_to
 FRONT_END += ["terra_tpu_torch.parallel.mesh", "terra_tpu_torch.parallel.distributed",
               "terra_tpu_torch.scripts.pod_render", "terra_tpu_torch.scripts.inverse_render",
               "terra_tpu_torch.scripts.scaling_bench"]
+# the bench, an entry point of its own
+FRONT_END += ["terra_tpu_torch.bench"]
 
 _CHECK = """
 import importlib, pkgutil, sys
