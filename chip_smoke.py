@@ -2228,34 +2228,31 @@ def _short(kernel: str) -> str:
     return re.sub(r"\(anonymous namespace\)::|\b\w+::|^void ", "", kernel)
 
 
-def _graph_time(torch, ttt, graphs, scene, cam, opts, kernels: bool) -> dict:
+def _graph_time(torch, ttt, scene, cam, opts, kernels: bool) -> dict:
     """Where one graphed render's time goes (its units already captured):
-    CUDA events around every graph replay, summed by stage, beside the host
-    clock (the rest is outside the graphs: the flag reads between blocks,
-    the film adds, the host's own work); then (``kernels``) the same render
-    under ``torch.profiler`` (CUDA activity), its kernels' device time
-    summed by name."""
-    events = []
-    real = graphs.Unit._replay
+    the program's hot spans under ``profile.tracing()``, the host seconds
+    of every graph replay (``terra.unit.replay.<stage>``) and flag read
+    (``terra.unit.flag_read``), beside the host clock (the rest is the
+    film adds, the input writes and the host's own work); then
+    (``kernels``) the same render under ``torch.profiler`` (CUDA activity),
+    its kernels' device time summed by name."""
+    from terra_tpu_torch import profile
 
-    def timed(self, stage):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        real(self, stage)
-        b.record()
-        events.append((stage, a, b))
+    def read(targets):
+        return {k: (s.sum, s.n) for k, s in targets.items()
+                if k.startswith("terra.unit.replay.") or k == "terra.unit.flag_read"}
 
     torch.cuda.synchronize()
-    with mock.patch.object(graphs.Unit, "_replay", timed):
+    before = read(profile.profiler.targets)
+    with profile.tracing() as registry:
         t0 = time.perf_counter()
         ttt.render(scene, cam, opts, seed=0)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    stage_ms, replays = collections.defaultdict(float), collections.Counter()
-    for stage, a, b in events:
-        stage_ms[stage] += a.elapsed_time(b)
-        replays[stage] += 1
-    out = dict(host_ms=host_ms, stage_ms=dict(stage_ms), replays=dict(replays))
+    spans = {k: ((v[0] - before.get(k, (0.0, 0))[0]) * 1e3, v[1] - before.get(k, (0.0, 0))[1])
+             for k, v in read(registry.targets).items()}
+    out = dict(host_ms=host_ms, stage_ms={k.rsplit(".", 1)[-1]: v[0] for k, v in spans.items()},
+               replays={k.rsplit(".", 1)[-1]: v[1] for k, v in spans.items()})
     if not kernels:
         return out
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2504,18 +2501,17 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
               f"pool of {unit['pool_bytes'] / 2**30:.3f} GiB", flush=True)
         # the profiler's kernel breakdown on 3b only: its post-processing
         # of the larger cells' traces would cost tens of seconds
-        bd = _graph_time(torch, ttt, graphs, scene, cam, opts, kernels=label == "3b")
+        bd = _graph_time(torch, ttt, scene, cam, opts, kernels=label == "3b")
         inside = sum(bd["stage_ms"].values())
         print(f"phase 9b: {label} where a graphed render's time goes: host clock "
-              f"{bd['host_ms']:.2f} ms; inside the graphs {inside:.2f} ms (CUDA events per "
-              f"replay: " + ", ".join(f"{k} {v:.2f} ms over {bd['replays'][k]}"
-                                      for k, v in bd["stage_ms"].items())
+              f"{bd['host_ms']:.2f} ms; in replays and flag reads {inside:.2f} ms (host spans: "
+              + ", ".join(f"{k} {v:.2f} ms over {bd['replays'][k]}"
+                          for k, v in bd["stage_ms"].items())
               + f"), outside them {bd['host_ms'] - inside:.2f} ms", flush=True)
         if "top" in bd:
             print(f"  the profiler: {bd['kernel_count']} kernels, {bd['kernel_ms']:.2f} ms of "
                   f"kernel time (busy share of the host clock {bd['kernel_ms'] / bd['host_ms']:.3f}"
-                  f"; {(inside - bd['kernel_ms']) / bd['kernel_count'] * 1e3:.3f} us a kernel "
-                  f"between kernels inside the graphs); by name:", flush=True)
+                  f"); by name:", flush=True)
             for name, ms, count in bd["top"]:
                 print(f"    {ms:8.3f} ms  x{count:<6d} {name[:120]}", flush=True)
         results[label] = dict(eager_s=med["eager"], graph_s=med["graph"], turns=secs,

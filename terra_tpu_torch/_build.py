@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import tempfile
 
+from .profile import profiler
+
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 
@@ -26,7 +28,8 @@ def build_shared(cmd: list[str], sources: list[str], stem: str,
     ``deps`` (headers the sources include) enter the hash but not the
     command. Returns the library path. The compiler's messages (for nvcc
     with ``-Xptxas -v``: registers, spills) are kept beside it as
-    ``<out>.log``.
+    ``<out>.log``. A compiler run is the span ``terra.kernel.build``
+    (``profile``); a library already built is none.
     """
     h = hashlib.sha256("\0".join(cmd).encode())
     for src in [*sources, *deps]:
@@ -39,8 +42,9 @@ def build_shared(cmd: list[str], sources: list[str], stem: str,
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([*cmd, "-o", tmp, *sources], capture_output=True,
-                              text=True, timeout=timeout)
+        with profiler.span("terra.kernel.build"):
+            proc = subprocess.run([*cmd, "-o", tmp, *sources], capture_output=True,
+                                  text=True, timeout=timeout)
         with open(out + ".log", "w") as f:
             f.write(proc.stdout + proc.stderr)
         if proc.returncode != 0:

@@ -18,15 +18,29 @@ Usage:
     python -m terra_tpu_torch opt-list
 
 ``render`` and ``console`` run on ``--device`` (default ``cuda``); without
-a CUDA device they exit and name ``--device cpu``. The JAX package's
-persistent compile cache has no counterpart here: nothing is traced, and
-the CUDA kernels and the native builder are built once into the package's
-``_build`` directory, named by a hash of their sources and flags, so a
-later process loads them without a rebuild.
+a CUDA device they exit and name ``--device cpu``.
+
+``render --stats`` runs its passes inside ``profile.tracing()``, so the
+report lists the program's spans beside the pass clock:
+``terra.render.pass``, ``terra.render.resume_read``,
+``terra.unit.inputs``, ``terra.unit.replay.<stage>``,
+``terra.unit.flag_read``, and the set-up's ``terra.scene.commit``,
+``terra.scene.bvh_build``, ``terra.render.context``,
+``terra.unit.capture``, ``terra.unit.warmup`` and ``terra.kernel.build``
+(host seconds; ``n`` counts each). ``render --trace DIR`` writes
+``DIR/trace.json`` from ``torch.profiler``, which records the same spans
+as ``user_annotation`` events beside the kernels, on their clock.
+
+The JAX package's persistent compile cache has no counterpart here:
+nothing is jit-compiled, and the CUDA kernels and the native builder are
+built once into the package's ``_build`` directory, named by a hash of
+their sources and flags, so a later process loads them without a
+rebuild.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -39,7 +53,7 @@ from . import scenes
 from .checkpoint import load_render_state, save_render_state
 from .config import Config, find_config_file, load_config_file
 from .film import Film, develop
-from .profile import device_trace, profiler, ray_count
+from .profile import device_trace, profiler, ray_count, tracing
 from .render import render
 from .scene import Accelerator, commit
 
@@ -157,10 +171,11 @@ def cmd_render(args) -> int:
             log.info("no checkpoint at %s; starting fresh", args.checkpoint)
 
     passes = max(args.passes, 1)
-    with device_trace(getattr(args, "trace", None)):
+    with device_trace(getattr(args, "trace", None)), \
+            tracing() if args.stats else contextlib.nullcontext():
         for i in range(passes):
             t0 = time.perf_counter()
-            with profiler.clock("render"):
+            with profiler.span("render"):
                 film = render(scene, cam, opts, seed=seed, film=film)
                 _sync(dev)
             dt = time.perf_counter() - t0
@@ -352,7 +367,7 @@ def cmd_console(args) -> int:
                 i = 0
                 try:
                     while n is None or i < n:
-                        with profiler.clock("render"):
+                        with profiler.span("render"):
                             film = render(s, c, opts, seed=seed, film=film)
                             _sync(dev)
                         i += 1
@@ -452,7 +467,8 @@ def main(argv=None) -> int:
     pr.add_argument("--opt", action="append", metavar="K=V", help="set any registry option")
     pr.add_argument("--checkpoint", help="render-state checkpoint path (.npz)")
     pr.add_argument("--resume", action="store_true", help="resume from checkpoint if present")
-    pr.add_argument("--stats", action="store_true", help="print profiler stats")
+    pr.add_argument("--stats", action="store_true",
+                    help="print profiler stats, the program's spans among them")
     pr.add_argument("--trace", metavar="DIR", default=None,
                     help="record a torch.profiler trace into DIR/trace.json")
     pr.add_argument("--device", default="cuda", help=device_help)

@@ -38,6 +38,11 @@ replay would count nothing. A unit records each graph's captured launches,
 takes them back out of the counters (the capture launched nothing), and
 adds them again on every replay.
 
+Spans (``profile``): a unit's construction is ``terra.unit.capture``, its
+eager warm-up nested in it as ``terra.unit.warmup``; each graph replay is
+a hot ``terra.unit.replay.<stage>`` span and each read of the
+all-finished flag in :func:`drive` a hot ``terra.unit.flag_read`` span.
+
 :class:`WeakCache` keys entries on owner objects (the scene, the camera)
 held weakly, drops an entry when an owner dies, and captures anew when the
 owners' fingerprint changes: a tensor replaced or changed in place
@@ -49,7 +54,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 import weakref
 from collections import OrderedDict
 from typing import Callable
@@ -57,6 +61,7 @@ from typing import Callable
 import torch
 
 from .accel import pallas_traverse
+from .profile import profiler
 
 __all__ = ["Unit", "StagedUnit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit",
            "train_unit", "staged_unit", "compact_run", "units", "clear", "CONTEXTS", "MAX_UNITS",
@@ -185,6 +190,18 @@ def _taken_back():
         pallas_traverse.launches, pallas_traverse.launches4 = l2, l4
 
 
+_REPLAY_SPANS: dict = {}
+
+
+def _replay_span(stage: str):
+    """The hot span of one replay of ``stage``, ``terra.unit.replay.<stage>``
+    (its name made once per stage name)."""
+    name = _REPLAY_SPANS.get(stage)
+    if name is None:
+        name = _REPLAY_SPANS[stage] = "terra.unit.replay." + stage
+    return profiler.hot(name)
+
+
 class Unit:
     """One launch unit captured from ``body`` (see ``render._BandBody``):
     the graphs of its stages, its static input buffer ``inputs`` (int64:
@@ -200,32 +217,33 @@ class Unit:
         self.inputs, self.flag = body.inputs, body.flag
         self.steps, self.trips_per_step = body.steps, body.trips_per_step
         stages = [s for s in self.STAGES if s != "step" or body.steps]
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), _sync_debug_error():
+        with profiler.span("terra.unit.capture") as whole:
+            with profiler.span("terra.unit.warmup") as warm:
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side), _sync_debug_error():
+                    for s in stages:
+                        getattr(body, s)()
+                torch.cuda.current_stream(device).wait_stream(side)
+                torch.cuda.synchronize(device)
+            # each capture empties the allocator's cache first; empty it
+            # here too, so the reserved bytes the captures add are the pool's
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            pool = torch.cuda.graph_pool_handle()
+            self._graphs = {}
             for s in stages:
-                getattr(body, s)()
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        self.warmup_s = time.perf_counter() - t0
-        # each capture empties the allocator's cache first; empty it here
-        # too, so the reserved bytes the captures add are the pool's
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        pool = torch.cuda.graph_pool_handle()
-        self._graphs = {}
-        for s in stages:
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
-                    out = getattr(body, s)()
-            except RuntimeError as e:
-                raise RuntimeError(f"capturing stage {s!r} of {self.label} failed: {e}") from e
-            self._graphs[s] = (graph, tuple(counts))
-        self.out = out  # the finish stage's static output
-        self.capture_s = time.perf_counter() - t0 - self.warmup_s
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
+                        out = getattr(body, s)()
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"capturing stage {s!r} of {self.label} failed: {e}") from e
+                self._graphs[s] = (graph, tuple(counts))
+            self.out = out  # the finish stage's static output
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.warmup_s, self.capture_s = warm.seconds, whole.seconds - warm.seconds
         # what the graphs read besides the scene's and camera's own
         # tensors (which their owners keep alive while the unit lives)
         self._keep = (body.ctx, body.lanes, body.state)
@@ -233,7 +251,8 @@ class Unit:
 
     def _replay(self, stage: str):
         graph, (n2, n4) = self._graphs[stage]
-        graph.replay()
+        with _replay_span(stage):
+            graph.replay()
         pallas_traverse.launches += n2
         pallas_traverse.launches4 += n4
 
@@ -250,7 +269,9 @@ class Unit:
 
     def describe(self) -> dict:
         """The unit's numbers; ``launches`` maps each stage to the (binary,
-        bvh4) kernel launches one replay of it makes."""
+        bvh4) kernel launches one replay of it makes; ``warmup_s`` is its
+        ``terra.unit.warmup`` span, ``capture_s`` the rest of its
+        ``terra.unit.capture`` span."""
         return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
                     pool_bytes=self.pool_bytes, replays=self.replays,
                     launches={s: c for s, (_, c) in self._graphs.items()},
@@ -276,37 +297,38 @@ class StagedUnit:
     def __init__(self, body, device, pool=None):
         device = torch.device(device)
         self.label, self.inputs, self.stages = body.label, body.inputs, tuple(body.stages)
-        t0 = time.perf_counter()
-        saved = body.save()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        try:
-            with torch.cuda.stream(side), _sync_debug_error():
-                for s in self.stages:
-                    try:
-                        body.run(s)
-                    except RuntimeError as e:
-                        raise RuntimeError(
-                            f"warming up stage {s!r} of {self.label} failed: {e}") from e
-        finally:
-            torch.cuda.current_stream(device).wait_stream(side)
-            body.restore(saved)
-            torch.cuda.synchronize(device)
-        self.warmup_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()  # as in Unit: the reserved bytes added are the pool's
-        reserved = torch.cuda.memory_reserved(device)
-        pool = torch.cuda.graph_pool_handle() if pool is None else pool
-        self._graphs = {}
-        for s in self.stages:
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
-                    out = body.run(s)
-            except RuntimeError as e:
-                raise RuntimeError(f"capturing stage {s!r} of {self.label} failed: {e}") from e
-            self._graphs[s] = (graph, tuple(counts), out)
-        self.capture_s = time.perf_counter() - t0 - self.warmup_s
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        with profiler.span("terra.unit.capture") as whole:
+            with profiler.span("terra.unit.warmup") as warm:
+                saved = body.save()
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                try:
+                    with torch.cuda.stream(side), _sync_debug_error():
+                        for s in self.stages:
+                            try:
+                                body.run(s)
+                            except RuntimeError as e:
+                                raise RuntimeError(
+                                    f"warming up stage {s!r} of {self.label} failed: {e}") from e
+                finally:
+                    torch.cuda.current_stream(device).wait_stream(side)
+                    body.restore(saved)
+                    torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()  # as in Unit: the reserved bytes added are the pool's
+            reserved = torch.cuda.memory_reserved(device)
+            pool = torch.cuda.graph_pool_handle() if pool is None else pool
+            self._graphs = {}
+            for s in self.stages:
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
+                        out = body.run(s)
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"capturing stage {s!r} of {self.label} failed: {e}") from e
+                self._graphs[s] = (graph, tuple(counts), out)
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.warmup_s, self.capture_s = warm.seconds, whole.seconds - warm.seconds
         # what the graphs read that no owner keeps alive (static buffers,
         # tables); the body itself holds the owners
         self._keep = body.keep
@@ -316,7 +338,8 @@ class StagedUnit:
         """Replay one stage; returns its static output (overwritten by the
         next replay of the stage)."""
         graph, (n2, n4), out = self._graphs[stage]
-        graph.replay()
+        with _replay_span(stage):
+            graph.replay()
         pallas_traverse.launches += n2
         pallas_traverse.launches4 += n4
         if stage == self.stages[0]:
@@ -325,7 +348,8 @@ class StagedUnit:
 
     def describe(self) -> dict:
         """The unit's numbers; ``launches`` maps each stage to the (binary,
-        bvh4) kernel launches one replay of it makes."""
+        bvh4) kernel launches one replay of it makes; ``warmup_s`` and
+        ``capture_s`` as for :meth:`Unit.describe`."""
         return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
                     pool_bytes=self.pool_bytes, replays=self.replays,
                     launches={s: c for s, (_, c, _) in self._graphs.items()})
@@ -354,8 +378,11 @@ def drive(body) -> tuple:
     while n < body.steps:
         body.step()
         n += 1
-        if n < body.steps and bool(body.flag):
-            break
+        if n < body.steps:
+            with profiler.hot("terra.unit.flag_read"):
+                done = bool(body.flag)
+            if done:
+                break
     return body.finish(), n * body.trips_per_step
 
 

@@ -1,7 +1,14 @@
 """Metrics registry, rays/s counters and device traces (port of
 ``terra_tpu/profile.py``).
 
-``Stats``, ``Profiler`` and ``ray_count`` are the reference's, unchanged.
+``Stats`` and ``ray_count`` are the reference's, unchanged. ``Profiler``
+keeps the reference's registry and report; its clock is a span
+(:meth:`Profiler.span`, :meth:`Profiler.hot`), which adds its host-clock
+seconds to the target of its name and, while a ``torch.profiler`` collects,
+opens a ``record_function`` of that name, so the span lands in the trace
+as a ``user_annotation`` on the kernels' clock. Hot spans, on the paths
+that run every pass, record only while tracing is on (a profiler collects,
+or inside :func:`tracing`); off, they cost a test and a shared object.
 Device work is asynchronous to the host, so times on a CUDA device come
 from CUDA events on the current stream, and ``device_trace`` records a
 ``torch.profiler`` trace (CPU and CUDA activities) where the reference
@@ -21,9 +28,15 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["Stats", "Profiler", "ray_count", "profiler", "device_trace",
+__all__ = ["Stats", "Profiler", "ray_count", "profiler", "tracing", "device_trace",
            "stage_breakdown", "device_ms", "card"]
+
+# the spans' clock (tests patch it to show that an off span reads none)
+_clock = time.perf_counter
+# open ``tracing()`` blocks
+_tracing = 0
 
 
 @dataclass
@@ -54,26 +67,88 @@ class Stats:
         return dict(n=self.n, avg=self.mean, var=self.var, min=self.min, max=self.max, sum=self.sum)
 
 
+class _Off:
+    """What a hot span is while tracing is off: one shared object that
+    does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A recording span; ``seconds`` holds its host-clock duration once it
+    has closed."""
+
+    __slots__ = ("owner", "target", "t0", "seconds", "_annotation")
+
+    def __init__(self, owner: "Profiler", target: str):
+        self.owner, self.target, self.seconds = owner, target, None
+
+    def __enter__(self):
+        self._annotation = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._annotation = torch.profiler.record_function(self.target)
+            self._annotation.__enter__()
+        self.owner._open.append(self.target)
+        self.t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = _clock() - self.t0
+        owner = self.owner
+        owner._open.pop()
+        owner.stats(self.target).add(self.seconds)
+        for outer in set(owner._open):
+            key = (outer, self.target)
+            owner._nested[key] = owner._nested.get(key, 0.0) + self.seconds
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        return False
+
+
 class Profiler:
     """Named targets, each a :class:`Stats`. Usage::
 
-        with profiler.clock("render"):
+        with profiler.span("render"):
             film = render(...)
 
-    ``clock`` reads the host clock: synchronise the device inside the block
-    to time device work."""
+    A span reads the host clock: synchronise the device inside the block
+    to time device work. Its target's ``n`` counts the spans."""
 
     def __init__(self):
         self.targets: Dict[str, Stats] = {}
+        self._open: list = []  # targets of the spans open now, outermost first
+        self._nested: Dict[tuple, float] = {}
 
     def stats(self, target: str) -> Stats:
         return self.targets.setdefault(target, Stats())
 
-    @contextlib.contextmanager
-    def clock(self, target: str):
-        t0 = time.perf_counter()
-        yield
-        self.stats(target).add(time.perf_counter() - t0)
+    def span(self, target: str) -> _Span:
+        """A span that always records: for work done a few times a process
+        (a scene's build, a capture, a compiler run)."""
+        return _Span(self, target)
+
+    def hot(self, target: str):
+        """A span on a path that runs every pass: it records only while
+        tracing is on (a ``torch.profiler`` collects, or inside
+        :func:`tracing`); off, it is one shared object that does nothing
+        and reads no clock."""
+        if not (_tracing or _autograd_profiler._is_profiler_enabled):
+            return _OFF
+        return _Span(self, target)
+
+    def nested(self, outer: str, inner: str) -> float:
+        """Seconds of ``inner`` spans that ran inside an open ``outer``
+        span."""
+        return self._nested.get((outer, inner), 0.0)
 
     def add_sample(self, target: str, value: float):
         self.stats(target).add(value)
@@ -96,9 +171,22 @@ class Profiler:
 
     def clear(self):
         self.targets.clear()
+        self._nested.clear()
 
 
 profiler = Profiler()
+
+
+@contextlib.contextmanager
+def tracing():
+    """Hot spans record inside the block, as they do while a
+    ``torch.profiler`` collects. Yields the module's profiler."""
+    global _tracing
+    _tracing += 1
+    try:
+        yield profiler
+    finally:
+        _tracing -= 1
 
 
 @contextlib.contextmanager

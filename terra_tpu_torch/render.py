@@ -29,6 +29,11 @@ textures and the camera through the differentiable surface recompute
 reference. :func:`trace_persistent` is a ``lax.while_loop`` in the
 reference, which JAX cannot reverse-differentiate, so it refuses inputs
 that require gradients. :func:`render` never records a graph.
+
+Spans (``profile``): a pass is ``terra.render.pass``, its host reads of
+the film's sample counts ``terra.render.resume_read`` and each write of a
+unit's inputs ``terra.unit.inputs`` (hot spans: they record only while
+tracing is on); building a render context is ``terra.render.context``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from .film import Film
 from .integrators import make_integrator
 from .ops import math3, rng as rng_mod
 from .ops.rng import PathStreams as S
+from .profile import profiler
 from .scene import Accelerator, Camera, Integrator, Intersector, LightPick, RenderOptions, \
     SamplingMethod, Scene
 from .surface import build_shade_tables, surface_init
@@ -206,9 +212,13 @@ def _context(scene: Scene, opts: RenderOptions):
     shading tables carry the scene's gradient."""
     if _scene_wants_grad(scene):
         return _build_context(scene, opts)
+
+    def make():
+        with profiler.span("terra.render.context"):
+            return _build_context(scene, opts)
+
     return graphs.CONTEXTS.get((scene,), (opts.accelerator, opts.intersector, opts.env_nee,
-                                          opts.light_pick),
-                               lambda: _build_context(scene, opts))
+                                          opts.light_pick), make)
 
 
 def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
@@ -530,14 +540,15 @@ def _set_inputs(buf, key, sample_offset, row0=None) -> None:
     unit's int64 input buffer: one copy from the host for python values,
     device copies for tensors."""
     parts = (key, sample_offset) if row0 is None else (key, sample_offset, row0)
-    if not any(isinstance(x, torch.Tensor) for x in parts):
-        buf.copy_(torch.as_tensor(np.asarray([*key, *parts[1:]], dtype=np.int64)))
-        return
-    for dst, x in zip((buf[0:2], buf[2:3], buf[3:4]), parts):
-        if isinstance(x, torch.Tensor):
-            dst.copy_(x.reshape(dst.shape))
-        else:
-            dst.copy_(torch.as_tensor(np.asarray(x, dtype=np.int64).reshape(dst.shape)))
+    with profiler.hot("terra.unit.inputs"):
+        if not any(isinstance(x, torch.Tensor) for x in parts):
+            buf.copy_(torch.as_tensor(np.asarray([*key, *parts[1:]], dtype=np.int64)))
+            return
+        for dst, x in zip((buf[0:2], buf[2:3], buf[3:4]), parts):
+            if isinstance(x, torch.Tensor):
+                dst.copy_(x.reshape(dst.shape))
+            else:
+                dst.copy_(torch.as_tensor(np.asarray(x, dtype=np.int64).reshape(dst.shape)))
 
 
 def _unit_sum(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_offset, row0,
@@ -631,43 +642,46 @@ def render(scene: Scene, cam: Camera, opts: RenderOptions, seed: int = 0,
     the full chunks in one :func:`render_chunks` summed from zero and
     added once, then the remainder by :func:`render_chunk`. On a CUDA
     scene each unit is a captured graph; a capture that fails raises."""
-    if film is None:
-        film = Film.create(opts.width, opts.height, scene.device)
-    key = rng_mod.key_from_seed(seed)
-    spp = opts.samples_per_pixel
-    chunk = min(opts.samples_per_launch or spp, spp)
-    # resume after the film's samples; a non-uniform film would reuse ids
-    base = int(film.samples.max()) if film.samples.numel() else 0
-    if film.samples.numel() and int(film.samples.min()) != base:
-        raise ValueError(
-            "render() resume requires a uniformly-sampled film "
-            f"(min={int(film.samples.min())}, max={base}); render missing "
-            "regions separately or reset the film")
-    band = _band_rows(opts, chunk)
-    h = opts.height
-    done = 0
-    if band < h:
+    with profiler.hot("terra.render.pass"):
+        if film is None:
+            film = Film.create(opts.width, opts.height, scene.device)
+        key = rng_mod.key_from_seed(seed)
+        spp = opts.samples_per_pixel
+        chunk = min(opts.samples_per_launch or spp, spp)
+        # resume after the film's samples; a non-uniform film would reuse ids
+        with profiler.hot("terra.render.resume_read"):
+            base = int(film.samples.max()) if film.samples.numel() else 0
+            uniform = not film.samples.numel() or int(film.samples.min()) == base
+        if not uniform:
+            raise ValueError(
+                "render() resume requires a uniformly-sampled film "
+                f"(min={int(film.samples.min())}, max={base}); render missing "
+                "regions separately or reset the film")
+        band = _band_rows(opts, chunk)
+        h = opts.height
+        done = 0
+        if band < h:
+            while done < spp:
+                cur = min(chunk, spp - done)
+                acc = film.acc.clone()
+                for b0 in range(0, h, band):
+                    part = render_band(scene, cam, opts, key, base + done, b0, cur, band)
+                    if opts.debug_checks:
+                        _validate_acc(part, f"chunk at sample offset {base + done}, rows from {b0}")
+                    acc[b0:b0 + band] = acc[b0:b0 + band] + part
+                film = Film(acc=acc, samples=film.samples + cur)
+                done += cur
+            return film
+        n_full = spp // chunk
+        if n_full > 1 and not opts.debug_checks:
+            acc = render_chunks(scene, cam, opts, key, base, chunk, n_full)
+            film = Film(acc=film.acc + acc, samples=film.samples + n_full * chunk)
+            done = n_full * chunk
         while done < spp:
             cur = min(chunk, spp - done)
-            acc = film.acc.clone()
-            for b0 in range(0, h, band):
-                part = render_band(scene, cam, opts, key, base + done, b0, cur, band)
-                if opts.debug_checks:
-                    _validate_acc(part, f"chunk at sample offset {base + done}, rows from {b0}")
-                acc[b0:b0 + band] = acc[b0:b0 + band] + part
-            film = Film(acc=acc, samples=film.samples + cur)
+            acc = render_chunk(scene, cam, opts, key, base + done, cur)
+            if opts.debug_checks:
+                _validate_acc(acc, f"chunk at sample offset {base + done}")
+            film = Film(acc=film.acc + acc, samples=film.samples + cur)
             done += cur
         return film
-    n_full = spp // chunk
-    if n_full > 1 and not opts.debug_checks:
-        acc = render_chunks(scene, cam, opts, key, base, chunk, n_full)
-        film = Film(acc=film.acc + acc, samples=film.samples + n_full * chunk)
-        done = n_full * chunk
-    while done < spp:
-        cur = min(chunk, spp - done)
-        acc = render_chunk(scene, cam, opts, key, base + done, cur)
-        if opts.debug_checks:
-            _validate_acc(acc, f"chunk at sample offset {base + done}")
-        film = Film(acc=film.acc + acc, samples=film.samples + cur)
-        done += cur
-    return film

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .ops import math3
+from .profile import profiler
 
 __all__ = [
     "BSDFType", "Integrator", "LightPick", "Tonemap", "SamplingMethod",
@@ -312,28 +313,33 @@ def commit(geometry: Geometry, materials: MaterialTable,
     """Build a committed :class:`Scene` on the geometry's device: light
     table, static material metadata and, for ``Accelerator.BVH``, the
     native tree of ``bvh_builder`` ("sah", binned SAH, or "lbvh", Morton;
-    ``leaf_size`` defaults to ``lbvh.DEFAULT_LEAF_SIZE``)."""
-    device = geometry.positions.device
-    bvh = None
-    if accelerator == Accelerator.BVH:
-        from .accel import lbvh
+    ``leaf_size`` defaults to ``lbvh.DEFAULT_LEAF_SIZE``). The whole
+    build is the span ``terra.scene.commit`` (``profile``), the tree's
+    ``terra.scene.bvh_build`` inside it."""
+    with profiler.span("terra.scene.commit"):
+        device = geometry.positions.device
+        bvh = None
+        if accelerator == Accelerator.BVH:
+            from .accel import lbvh
 
-        bvh = lbvh.build(geometry, leaf_size=leaf_size, builder=bvh_builder)
-    used = np.unique(_np(materials.bsdf_type)[np.unique(_np(geometry.mat_id))])
-    attr_tex_np = _np(materials.attr_tex)
-    tex_slots = tuple(s for s in range(attr_tex_np.shape[1]) if np.any(attr_tex_np[:, s] >= 0))
-    materials = dataclasses.replace(
-        materials,
-        types_present=tuple(int(t) for t in used),
-        tex_slots=tex_slots,
-        emissive_textured=bool(np.any(_np(materials.emissive_tex) >= 0)),
-    )
-    return Scene(
-        geometry=geometry,
-        materials=materials,
-        textures=textures if textures is not None else TextureAtlas.empty(device),
-        lights=build_light_table(geometry, materials, light_capacity),
-        env_value=torch.as_tensor(np.asarray(env_value, np.float32), device=device),
-        env_tex=int(env_tex),
-        bvh=bvh,
-    )
+            with profiler.span("terra.scene.bvh_build"):
+                bvh = lbvh.build(geometry, leaf_size=leaf_size, builder=bvh_builder)
+        used = np.unique(_np(materials.bsdf_type)[np.unique(_np(geometry.mat_id))])
+        attr_tex_np = _np(materials.attr_tex)
+        tex_slots = tuple(s for s in range(attr_tex_np.shape[1])
+                          if np.any(attr_tex_np[:, s] >= 0))
+        materials = dataclasses.replace(
+            materials,
+            types_present=tuple(int(t) for t in used),
+            tex_slots=tex_slots,
+            emissive_textured=bool(np.any(_np(materials.emissive_tex) >= 0)),
+        )
+        return Scene(
+            geometry=geometry,
+            materials=materials,
+            textures=textures if textures is not None else TextureAtlas.empty(device),
+            lights=build_light_table(geometry, materials, light_capacity),
+            env_value=torch.as_tensor(np.asarray(env_value, np.float32), device=device),
+            env_tex=int(env_tex),
+            bvh=bvh,
+        )
