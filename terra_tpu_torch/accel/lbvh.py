@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..profile import profiler
 
 __all__ = ["LBVH", "build", "refit", "refit_", "DEFAULT_LEAF_SIZE"]
 
@@ -344,13 +345,16 @@ def refit_(bvh: LBVH, geometry) -> LBVH:
     """:func:`refit` in place: the recomputed boxes are copied into
     ``bvh.node_min`` and ``node_max``, so tables packed from them inside a
     captured graph see the moved triangles on its next replay. Returns
-    ``bvh``."""
-    pos, vidx = _host(geometry)
-    node_min, node_max = _refit_host(
-        pos, vidx, bvh.leaf_tri.cpu().numpy(), bvh.node_left.cpu().numpy(),
-        bvh.node_right.cpu().numpy())
-    bvh.node_min.copy_(torch.as_tensor(node_min))
-    bvh.node_max.copy_(torch.as_tensor(node_max))
+    ``bvh``. The hot span ``terra.bvh.refit`` (``profile``) holds it all:
+    the read of the positions to the host, the refit there, the copies
+    back."""
+    with profiler.hot("terra.bvh.refit"):
+        pos, vidx = _host(geometry)
+        node_min, node_max = _refit_host(
+            pos, vidx, bvh.leaf_tri.cpu().numpy(), bvh.node_left.cpu().numpy(),
+            bvh.node_right.cpu().numpy())
+        bvh.node_min.copy_(torch.as_tensor(node_min))
+        bvh.node_max.copy_(torch.as_tensor(node_max))
     return bvh
 
 

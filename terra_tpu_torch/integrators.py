@@ -133,7 +133,8 @@ def _mis_bsdf_strategy(ctx, surf: Surface, wo, bounce, ls):
     bsdf_pdf = bsdf.pdf(surf, wi, wo, aux, ctx["present"])
     o_sh, d_sh = _shadow_ray(surf, wi, ctx)
     hit = ctx["raycast"](o_sh, d_sh, sort_hint=ctx["hit_tri"])
-    hit_surf = surface_init(scene, ctx["tables"], o_sh + d_sh * 1e-3, d_sh, hit.tri)
+    hit_surf = surface_init(scene, ctx["tables"], o_sh + d_sh * 1e-3, d_sh, hit.tri,
+                            live=hit.hit if ctx.get("recording") else None)
     same_object = hit_surf.obj_id == scene.geometry.obj_id[ls.tri_idx.long()]
     now = math3.dot(hit_surf.normal, -wi)
     ok = _skip_delta(ctx, hit.hit & same_object & (now > 0.0))

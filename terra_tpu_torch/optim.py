@@ -51,6 +51,7 @@ from . import graphs
 from .checkpoint import tree_leaves, tree_map, tree_unflatten
 from .ops import rng as rng_mod
 from .parallel.mesh import Mesh, shard_sizes
+from .profile import profiler
 from .render import _GradBody, _set_inputs, render_rows
 from .scene import Camera, RenderOptions, Scene
 
@@ -335,18 +336,24 @@ def make_train_step(cam: Camera, opts: RenderOptions, target, optimizer,
     replayed on every later one: forward, backward and the optimiser's
     update, with the key and the sample offset copied into its input
     buffer. A capture that fails raises. On the CPU the same stages run
-    eagerly. ``value_and_grad(make_loss_fn(...))`` is the eager step."""
+    eagerly. ``value_and_grad(make_loss_fn(...))`` is the eager step.
+
+    The three replays and the loss's copy are the hot span
+    ``terra.train.step`` (``profile``); the capture, on a first call,
+    stays outside it."""
     spp = spp or opts.samples_per_pixel
 
     def step(state: TrainState, scene: Scene, key):
         params, opt = _start(state, optimizer)
         unit = _unit("step", scene, cam, opt, params, (opts, spp, _target_key(target)),
                      lambda: _StepBody(scene, cam, opts, target, spp, params, opt))
-        _set_inputs(unit.inputs, key, state.step * spp)
-        loss = unit.replay("forward")
-        unit.replay("backward")
-        unit.replay("update")
-        return TrainState(params, opt, state.step + 1), loss.clone()
+        with profiler.hot("terra.train.step"):
+            _set_inputs(unit.inputs, key, state.step * spp)
+            loss = unit.replay("forward")
+            unit.replay("backward")
+            unit.replay("update")
+            loss = loss.clone()
+        return TrainState(params, opt, state.step + 1), loss
 
     return step
 

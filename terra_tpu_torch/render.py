@@ -149,14 +149,22 @@ def _streams_for(integrator, env_nee: bool = False) -> tuple:
     return _CONTINUATION_STREAMS + extra
 
 
-def _continue(surf, u, wo, throughput, present):
+def _continue(surf, u, wo, throughput, present, live=None):
     """BSDF sample, pdf, f and cosine of the path continuation; returns
     (wi, unnormalised new throughput, continuation origin). Transmitted
-    rays continue from the far side of the surface."""
+    rays continue from the far side of the surface. ``live`` (given where
+    autograd records): lanes outside it take f 0, cosine 0 and pdf 1
+    before the product is formed, so an infinite factor of a lane the
+    caller masks out meets no 0 gradient in the backward (0 × inf); a
+    live lane's words and gradient are unchanged."""
     wi, aux = bsdf.sample(surf, u[S.BSDF_E0], u[S.BSDF_E1], u[S.BSDF_E2], wo, present)
     pdf = torch.clamp(bsdf.pdf(surf, wi, wo, aux, present), min=EPS)
     f = bsdf.eval_f(surf, wi, wo, present)
     nol, off_sign = bsdf.continuation_factors(surf, wi, present)
+    if live is not None:
+        f = torch.where(live[..., None], f, 0.0)
+        nol = torch.where(live, nol, 0.0)
+        pdf = torch.where(live, pdf, 1.0)
     new_tp = throughput * f * (nol / pdf)[..., None]
     offset = intersect.SURFACE_OFFSET_NORMAL
     if off_sign is not None:
@@ -175,13 +183,17 @@ def _miss_env(scene, opts: RenderOptions, d, throughput, miss, emit_ok, bounce):
     return torch.where(miss[..., None], throughput * envmap.radiance(scene, d), 0.0)
 
 
-def _shade(scene, ctx_base, integrator, hit, o, d, active, throughput, bounce, u, emit_ok):
+def _shade(scene, ctx_base, integrator, hit, o, d, active, throughput, bounce, u, emit_ok,
+           recording=False):
     """Surface, integrator radiance and the per-lane delta mask of one
-    bounce."""
-    surf = surface_init(scene, ctx_base["tables"], o + d * intersect.RAY_OFFSET_DIR, d, hit.tri)
+    bounce. ``recording`` (autograd records the bounce): lanes outside
+    ``active`` shade a finite stand-in surface (``surface_init``'s
+    ``live``), as do the integrator's own surfaces of rays that missed."""
+    surf = surface_init(scene, ctx_base["tables"], o + d * intersect.RAY_OFFSET_DIR, d, hit.tri,
+                        live=active if recording else None)
     ctx = dict(ctx_base, scene=scene, rng=lambda _bounce, stream: u[stream], ray_origin=o,
                active=active, emit_ok=emit_ok, delta=bsdf.delta_mask(surf, ctx_base["present"]),
-               hit_tri=torch.where(active, hit.tri, -1))
+               hit_tri=torch.where(active, hit.tri, -1), recording=recording)
     radiance = integrator(ctx, surf, -d, throughput, bounce)
     return surf, radiance, ctx["delta"]
 
@@ -240,6 +252,11 @@ def _trace(scene: Scene, ctx_base: dict, opts: RenderOptions, key, o, d, pixel_i
     prev_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     # specular-bounce flag, carried where the scene has delta lobes
     emit_ok = active.clone() if ctx_base["has_delta"] else None
+    # where autograd records, lanes the bounce masks out get finite factors
+    # (else 0 × inf in the backward); decided on the host, so static inside
+    # a captured training unit
+    recording = _scene_wants_grad(scene) or (torch.is_grad_enabled() and (
+        o.requires_grad or d.requires_grad))
     for bounce in range(opts.bounces + 1):
         u = rng_mod.path_uniform_bundle(key, pixel_idx, sample_idx, bounce, streams)
         hit = ctx_base["raycast"](*intersect.mask_dead_rays(active, o, d),
@@ -248,10 +265,11 @@ def _trace(scene: Scene, ctx_base: dict, opts: RenderOptions, key, o, d, pixel_i
             lo = lo + _miss_env(scene, opts, d, throughput, active & ~hit.hit, emit_ok, bounce)
         active = active & hit.hit
         surf, radiance, delta = _shade(scene, ctx_base, integrator, hit, o, d, active,
-                                       throughput, bounce, u, emit_ok)
+                                       throughput, bounce, u, emit_ok, recording)
         lo = lo + torch.where(active[..., None], radiance, 0.0)
 
-        wi, new_tp, new_o = _continue(surf, u, -d, throughput, ctx_base["present"])
+        wi, new_tp, new_o = _continue(surf, u, -d, throughput, ctx_base["present"],
+                                      active if recording else None)
         if bounce >= opts.rr_start_bounce:  # Russian roulette
             p = math3.max3(new_tp)
             active = active & (u[S.ROULETTE] <= p)

@@ -102,12 +102,42 @@ def _eval_attribute(scene: Scene, const_val, tex_id, uv):
     return torch.where((tex_id >= 0)[..., None], tex_val, const_val)
 
 
-def surface_init(scene: Scene, tables: ShadeTables, o, d, tri_idx) -> Surface:
+def _stand_in(live, row, o, d):
+    """``row``, ``o`` and ``d`` with the lanes outside ``live`` replaced by a
+    fixed unit triangle (corners 0, x, z; normals +y; uvs 0, which
+    :func:`surface_init` then replaces; material and object 0) under a
+    fixed ray straight down onto it (hit at t = 1, barycentrics (0.5,
+    0.25, 0.25)). Built on the device: no host copy."""
+    dev, dt = row.device, row.dtype
+    ex, ey, ez = torch.eye(3, dtype=dt, device=dev)
+    zero = torch.zeros(3, dtype=dt, device=dev)
+    tri = torch.cat([zero, ex, ez, ey, ey, ey, torch.zeros(row.shape[1] - 18, dtype=dt,
+                                                            device=dev)])
+    m = live[:, None]
+    return (torch.where(m, row, tri), torch.where(m, o, 0.25 * (ex + ez) + ey),
+            torch.where(m, d, -ey))
+
+
+def surface_init(scene: Scene, tables: ShadeTables, o, d, tri_idx, live=None) -> Surface:
     """Surface for lanes with (possibly invalid) triangle ids. ``o``/``d``
     are the ray that produced the hit (origin already offset). The hit
     distance is a ray/plane intersection with the chosen triangle, the
-    barycentrics the reference's 2x2 normal-equation solve."""
+    barycentrics the reference's 2x2 normal-equation solve.
+
+    ``live`` (given where autograd records): the lanes whose hit is real.
+    A lane outside it holds the triangle of id 0 under a ray that missed
+    it, whose barycentrics can pass 2^24, where the f32 interpolated
+    normal cancels to zero and the frame built on it is NaN; the surface
+    is masked out downstream, but the backward multiplies its 0 gradient
+    by those values (0 × inf). Such a lane takes a fixed stand-in
+    triangle and ray instead (a ``where`` on the inputs as well as on the
+    output), its uv drawn from its own ray's direction: its surface is
+    finite and it passes exactly 0 back. A live lane's words are
+    unchanged."""
     row = fetch_rows(tables.tri, tri_idx)
+    if live is not None:
+        ray_d = d
+        row, o, d = _stand_in(live, row, o, d)
     va, vb, vc = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
     uv0, uv1, uv2 = row[:, 18:20], row[:, 20:22], row[:, 22:24]
@@ -137,6 +167,11 @@ def surface_init(scene: Scene, tables: ShadeTables, o, d, tri_idx) -> Surface:
 
     normal = math3.normalize(wa[..., None] * n0 + wb[..., None] * n1 + wc[..., None] * n2)
     uv = wa[..., None] * uv0 + wb[..., None] * uv1 + wc[..., None] * uv2
+    if live is not None:
+        # the stand-in lanes' uvs spread over the texture by their own rays:
+        # at one shared uv every such lane's (zero) gradient would land on
+        # the same texels, a serial run of the backward's index accumulate
+        uv = torch.where(live[:, None], uv, 0.5 + 0.5 * ray_d.detach()[:, ::2])
 
     mrow = fetch_rows(tables.mat, mat_id)
     bsdf_type = torch.round(mrow[:, 0]).to(torch.int32)

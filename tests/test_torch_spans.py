@@ -161,3 +161,77 @@ def test_stats_lists_the_span_targets(capsys):
     for name in ("render ", "terra.render.pass", "terra.render.resume_read",
                  "terra.unit.inputs", "terra.scene.commit", "terra.render.context"):
         assert name in report, (name, report)
+
+
+# --- the training loop's spans ----------------------------------------------
+
+TRAIN = ("terra.train.step", "terra.bvh.refit")
+
+
+def _recover(steps=2):
+    """``optim.recover`` on the small lit Cornell box on a BVH, positions
+    trained, so every step refits the tree on the host."""
+    from terra_tpu_torch import optim
+
+    scene = ttt.scenes.cornell_box(with_blocks=False, accelerator=ttt.Accelerator.BVH,
+                                   device="cpu")
+    cam = ttt.scenes.cornell_camera(device="cpu")
+    opts = ttt.RenderOptions(width=8, height=8, samples_per_pixel=2, bounces=1,
+                             integrator=ttt.Integrator.DIRECT, rr_start_bounce=8)
+    target = torch.full((8, 8, 3), 0.1)
+    return optim.recover(scene, cam, opts, target, fields=("attrs", "positions"), steps=steps,
+                         learning_rate=0.5, seed=5)
+
+
+def test_train_spans_count_the_steps_and_refits():
+    with profile.tracing():
+        _recover(steps=3)
+    p = profile.profiler
+    assert p.stats("terra.train.step").n == 3 and p.stats("terra.bvh.refit").n == 3
+
+
+def test_train_spans_land_in_the_trace_and_the_refit_holds_only_its_own(tmp_path):
+    """Under a ``torch.profiler`` both spans are ``user_annotation``
+    events; each refit lies after its step's span, and neither it nor the
+    step holds the other or any other span of the program (the step's
+    replays and input write lie inside the step), so the device idle
+    inside a refit is the refit's own."""
+    with profile.device_trace(str(tmp_path)):
+        _recover(steps=2)
+    events = [e for e in json.load(open(tmp_path / "trace.json"))["traceEvents"]
+              if e.get("ph") == "X" and e.get("name", "").startswith("terra.")]
+    by = {}
+    for e in events:
+        by.setdefault(e["name"], []).append(e)
+    assert len(by["terra.train.step"]) == 2 and len(by["terra.bvh.refit"]) == 2
+    for e in by["terra.train.step"] + by["terra.bvh.refit"]:
+        assert e["cat"] == "user_annotation", e
+
+    def inside(a, b):
+        return b["ts"] <= a["ts"] and a["ts"] + a["dur"] <= b["ts"] + b["dur"]
+
+    for refit, step in zip(by["terra.bvh.refit"], by["terra.train.step"]):
+        assert refit["ts"] >= step["ts"] + step["dur"]
+        for e in events:
+            if e is not refit:
+                assert not inside(e, refit), e["name"]
+                assert not inside(refit, e), e["name"]
+    for e in by.get("terra.unit.inputs", []):
+        assert any(inside(e, s) for s in by["terra.train.step"])
+    p = profile.profiler
+    for name in p.targets:
+        assert p.nested("terra.bvh.refit", name) == 0.0, name
+        assert p.nested(name, "terra.bvh.refit") == 0.0, name
+
+
+def test_train_spans_off_record_nothing_and_read_no_clock(monkeypatch):
+    reads = []
+    monkeypatch.setattr(profile, "_clock", lambda: reads.append(1) or 0.0)
+    _, losses = _recover(steps=2)
+    assert len(losses) == 2
+    targets = profile.profiler.targets
+    assert not any(name in targets for name in TRAIN)
+    assert "terra.scene.commit" in targets  # a cold span, recorded
+    assert len(reads) == 2 * sum(s.n for s in targets.values())  # the cold spans' reads only
+    for name in TRAIN:
+        assert profile.profiler.hot(name) is profile.profiler.hot("terra.render.pass")
