@@ -24,6 +24,17 @@ exits non-zero (there is no CPU fallback):
      the SASS of each uniforms_kernel<NB> instance from ``cuobjdump -sass``
      priced pipe by pipe), and the plain chain's time as a captured CUDA
      graph replays it (the render's form);
+  1c. the row-accumulate kernel (``csrc/row_accumulate.cu``,
+     ``ops.row_accumulate``: the backward of the training path's row
+     gathers) at ``courtyard.inverse``'s shapes: 1,179,648 lanes into the
+     (241,764 x 26) triangle table with row 0's run at the cell's miss
+     share, the same lanes into the (32,768 x 3) atlas, and the 725,292
+     corners of the 241,764 triangles into the (725,292 x 3) positions; against its plain version
+     (0 differing words) and against itself (equal bits over two calls);
+     a call's device time in a captured graph of 100 (the sort, the zeroed
+     table and the level launches), its bytes bound, the plain version's
+     time and PyTorch's deterministic ``index_put_(accumulate=True)`` in a
+     graph of 100 (``library_ms``);
   2. binary-kernel gate on the 241,764-triangle courtyard: the kernel
      against its plain PyTorch version on the card (2^20 camera rays, 2^18
      uniform random rays, 2^18 occlusion rays with t_max, plus
@@ -287,7 +298,7 @@ from unittest import mock
 import numpy as np
 
 N_CHECK = 2048  # rays held against brute force
-LAUNCH_KEYS = ("binary", "bvh4", "threefry")  # the kernels whose launches are counted
+LAUNCH_KEYS = ("binary", "bvh4", "threefry", "row_accumulate")  # kernels whose launches count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 RAY_BYTES = 32             # o, d in (24 B), t, tri out (8 B)
@@ -319,6 +330,17 @@ SASS_PIPES = (
 THREEFRY_CELLS = (("courtyard.render", 384 * 384, "DIRECT", False),
                   ("cornell.render", 512 * 512, "DIRECT_MIS", False),
                   ("courtyard.sky", 384 * 384, "DIRECT_MIS", True))
+# The row accumulates of courtyard.inverse's step, at its shapes: (name,
+# lanes, table rows, columns, ids). "misses": ROW0_SHARE of the lanes on
+# row 0 (the lanes that missed gather triangle 0; the first bounce's share
+# in phase 6c's step, measured on the H100: 0.32, then 0.23 and 0.10), the
+# others uniform over the other rows; "uniform": uniform over the rows;
+# "corners": each row once (the soup's three corner ids a triangle, in one
+# gather).
+ROW0_SHARE = 0.32
+ACCUMULATE_CASES = (("triangles", 384 * 384 * 8, 241764, 26, "misses"),
+                    ("atlas", 384 * 384 * 8, 2 * 128 * 128, 3, "uniform"),
+                    ("positions", 3 * 241764, 725292, 3, "corners"))
 # Twin budgets (tol, flip, energy) of tests/test_golden.py::_assert_twin_match
 # as the reference tests set them.
 GOLDEN = (2e-3, 8e-3, 5e-3)
@@ -334,6 +356,18 @@ def _ms(fn, reps: int, warm_up: bool = True, backlog: bool = False) -> float:
     from terra_tpu_torch.profile import device_ms
 
     return device_ms(fn, reps, warm_up, backlog)
+
+
+def _graph_ms(torch, fn, launches=1) -> float:
+    """Milliseconds of one ``fn()`` as a captured CUDA graph of ``launches``
+    calls replays it (CUDA events over 20 replays)."""
+    fn()  # warm-up: the allocator's blocks for the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    return _ms(g.replay, 20) / launches
 
 
 def _compare(name, kernel, plain, t_max=None, any_hit=False):
@@ -809,18 +843,19 @@ def _main_path_phase(torch, pt, batches, binary, footprint):
 
 
 def _zero_launches(pt):
-    """Set the launch counts of the traversal kernels and of the threefry
-    kernel to 0, before a run of the main path."""
-    from terra_tpu_torch.ops import rng
+    """Set the launch counts of the traversal kernels, the threefry kernel
+    and the row-accumulate kernel to 0, before a run of the main path."""
+    from terra_tpu_torch.ops import rng, row_accumulate
 
-    pt.launches = pt.launches4 = rng.launches = 0
+    pt.launches = pt.launches4 = rng.launches = row_accumulate.launches = 0
 
 
 def _launches(pt) -> dict:
     """The launch counts of each kernel since ``_zero_launches``."""
-    from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.ops import rng, row_accumulate
 
-    return {"binary": pt.launches, "bvh4": pt.launches4, "threefry": rng.launches}
+    return {"binary": pt.launches, "bvh4": pt.launches4, "threefry": rng.launches,
+            "row_accumulate": row_accumulate.launches}
 
 
 def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
@@ -1268,7 +1303,7 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
           f"lanes), 2 bounces, DIRECT, fields {fields}, 4 Adam steps at 3e-2: {total:.1f} ms/step "
           f"(host clock); peak memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
           f"above the {base / 2**30:.2f} GiB held before); launches binary {launches['binary']} "
-          f"bvh4 {launches['bvh4']}", flush=True)
+          f"bvh4 {launches['bvh4']} row_accumulate {launches['row_accumulate']}", flush=True)
     for i in range(4):
         print(f"  step {i}: loss {losses[i]:.6e}; forward {fwd[i]:.1f} ms (of which table pack "
               f"{rec['pack'][i]:.1f} ms), backward {bwd[i]:.1f} ms, Adam {rec['adam'][i]:.2f} "
@@ -1321,7 +1356,7 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
           f"{[f'{x:.4e}' for x in losses2]}, launches bvh4 {launches2})", flush=True)
     if not (all(np.isfinite(losses)) and all(rec["finite"]) and np.isfinite(loss_end)
             and loss_two < loss_start and contained and moved > 0 and same[True]
-            and launches["bvh4"] > 0):
+            and launches["bvh4"] > 0 and launches["row_accumulate"] > 0):
         raise AssertionError("phase 6c failed a gate")
     return launches, {"ms_per_step": total, "forward_ms": fwd, "backward_ms": bwd,
                       "adam_ms": rec["adam"], "refit_ms": rec["refit"], "pack_ms": rec["pack"],
@@ -1498,13 +1533,7 @@ def _phase1b(torch) -> dict:
               f"{dict(sorted(mix.items()))}", flush=True)
 
     def graph_ms(fn, launches=1):
-        fn()  # warm-up: the allocator's blocks for the capture
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(launches):
-                fn()
-        return _ms(g.replay, 20) / launches
+        return _graph_ms(torch, fn, launches)
 
     out = {}
     for cell, n, integ, env in THREEFRY_CELLS:
@@ -1550,6 +1579,69 @@ def _phase1b(torch) -> dict:
               f"plain {row['plain_jitter_ms'] * 1e3:.1f} us)", flush=True)
         out[cell] = row
     rng.launches = 0  # the comparisons and timings are not the main path's
+    return out
+
+
+def _phase1c(torch) -> dict:
+    """Phase 1c. Returns {case: {"lanes", "rows", "cols", "levels", "ms",
+    "sort_ms", "plain_ms", "library_ms", "bound_ms"}} for each of
+    ``ACCUMULATE_CASES``: a call's device time as a captured graph of 100
+    calls replays it (the sort, the zeroed table and the level launches),
+    the stable sort's alone, the plain version on the card (events, eager),
+    PyTorch's deterministic ``index_put_(accumulate=True)`` into zeros in a
+    graph of 100, and the bound: the gradient and the int64 ids read once
+    and the table written once, at 3.35 TB/s. The kernel's table is held to
+    the plain version's on the CPU word for word, and to a second call."""
+    from terra_tpu_torch import optim
+    from terra_tpu_torch.ops import row_accumulate as ra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(22)
+    out = {}
+    for name, n, rows, cols, kind in ACCUMULATE_CASES:
+        if kind == "misses":
+            ids = torch.randint(1, rows, (n,), generator=gen)
+            ids[torch.rand(n, generator=gen) < ROW0_SHARE] = 0
+        elif kind == "uniform":
+            ids = torch.randint(0, rows, (n,), generator=gen)
+        else:
+            ids = torch.randperm(rows, generator=gen)[:n]
+        grad = torch.randn((n, cols), generator=gen)
+        grad[torch.rand((n, cols), generator=gen) < 0.1] = -0.0
+        want = ra.row_accumulate_plain(grad, ids, rows)
+        g, i = grad.to(dev), ids.to(dev)
+        ra.launches = 0
+        a = ra.row_accumulate(g, i, rows)
+        b = ra.row_accumulate(g, i, rows)
+        torch.cuda.synchronize()
+        words = int((a.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+        repeat = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        levels = len(ra.level_sizes(n))
+        if words or not repeat or ra.launches != 2 * levels:
+            raise AssertionError(f"row_accumulate at {name}: {words} words differ from the plain "
+                                 f"version, bits repeat {repeat}, {ra.launches} launches "
+                                 f"({2 * levels} expected)")
+
+        def library():
+            return torch.zeros((rows, cols), device=dev).index_put_((i,), g, accumulate=True)
+
+        row = dict(lanes=n, rows=rows, cols=cols, levels=levels)
+        row["ms"] = _graph_ms(torch, lambda: ra.row_accumulate(g, i, rows), 100)
+        row["sort_ms"] = _graph_ms(torch, lambda: torch.sort(i.to(torch.int32), stable=True), 100)
+        row["plain_ms"] = _ms(lambda: ra.row_accumulate_plain(g, i, rows), 3)
+        with optim.deterministic():
+            row["library_ms"] = _graph_ms(torch, library, 100)
+        row["bound_ms"] = (n * cols * 4 + n * 8 + rows * cols * 4) / HBM_BYTES_PER_S * 1e3
+        row["library_max_rel"] = float((library() - a).abs().max() / a.abs().max())
+        print(f"phase 1c: row_accumulate {name} ({n} lanes into ({rows} x {cols}), {kind}, "
+              f"{levels} levels): words differing from the plain version 0, bits repeat; "
+              f"{row['ms'] * 1e3:.1f} us a call in a graph (of it the sort "
+              f"{row['sort_ms'] * 1e3:.1f} us; bound {row['bound_ms'] * 1e3:.1f} us, bytes); "
+              f"plain {row['plain_ms']:.2f} ms; PyTorch's deterministic index_put_ "
+              f"{row['library_ms'] * 1e3:.1f} us in a graph (max rel to the kernel "
+              f"{row['library_max_rel']:.2e})", flush=True)
+        out[name] = row
+    ra.launches = 0  # the comparisons and timings are not the main path's
     return out
 
 
@@ -3089,8 +3181,9 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
           f"backward {np.mean(eager['backward_ms']):.1f}, Adam {np.mean(eager['adam_ms']):.2f} ms "
           f"a step); peak memory {peak / 2**30:.2f} GiB beside a pool of "
           f"{unit['pool_bytes'] / 2**30:.2f} GiB (6c eager peak {eager['peak_gib']:.2f} GiB); "
-          f"launches binary {launches['binary']} bvh4 {launches['bvh4']}; stage launches "
-          f"{unit['launches']}", flush=True)
+          f"launches binary {launches['binary']} bvh4 {launches['bvh4']} row_accumulate "
+          f"{launches['row_accumulate']}; stage launches (binary, bvh4, threefry, "
+          f"row_accumulate) {unit['launches']}", flush=True)
     busy = sum(r[1] for r in profiled)
     print(f"  the fifth step's backward under the profiler: {sum(r[2] for r in profiled)} "
           f"kernels, {busy:.1f} ms of kernel time; by name:", flush=True)
@@ -3108,7 +3201,8 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
           f"clock)", flush=True)
     backward_profile.print_profile(by_shape, indent="    ")
     ok = len(captures) == 1 and tables_equal and hits_equal and moved and \
-        (all(same_steps) or rel <= 2e-3) and all(np.isfinite(losses))
+        (all(same_steps) or rel <= 2e-3) and all(np.isfinite(losses)) and \
+        launches["row_accumulate"] > 0 and unit["launches"]["backward"][3] > 0
     if not ok:
         raise AssertionError("phase 10c failed a gate")
     captures.clear()
@@ -3430,7 +3524,7 @@ def main() -> None:
     from terra_tpu_torch import _build, graphs, intersect, native, probes
     from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.accel import traverse
-    from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.ops import rng, row_accumulate
     from terra_tpu_torch.scripts import compact_bench
 
     # 1. builds, all started together
@@ -3440,13 +3534,13 @@ def main() -> None:
         return time.perf_counter() - t0
 
     # the traversal kernels also with a 64-entry stack, for phase 2c's A/B
-    with ThreadPoolExecutor(7) as ex:
+    with ThreadPoolExecutor(8) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in
                 (("bvh_traverse", pt.load_kernel), ("bvh4_traverse", pt.load_kernel4),
                  ("bvh_traverse cap 64", functools.partial(pt.load_kernel, 64)),
                  ("bvh4_traverse cap 64", functools.partial(pt.load_kernel4, 64)),
                  ("pattern_probes", probes.load_kernel), ("threefry", rng.load_kernel),
-                 ("terra_native", native.load))}
+                 ("row_accumulate", row_accumulate.load_kernel), ("terra_native", native.load))}
         build_s = {name: f.result() for name, f in futs.items()}
     print("phase 1: built, in parallel, " + ", ".join(
         f"{name} ({'g++' if name == 'terra_native' else 'nvcc sm_90a'}) in {sec:.2f} s"
@@ -3459,7 +3553,8 @@ def main() -> None:
             ("bvh4_traverse", pt.kernel4_path(), "ALGO, HAS_TMAX, ANY_HIT, ENC, PAGED, COUNT; "
              f"{pt.STACK_CAP}-entry stack"),
             ("pattern_probes", probes.kernel_path(), "one per site"),
-            ("threefry", rng.kernel_path(), "stream pairs a launch"))}
+            ("threefry", rng.kernel_path(), "stream pairs a launch"),
+            ("row_accumulate", row_accumulate.kernel_path(), "one level a launch"))}
     footprint64 = {
         name: _print_footprints(f"{name} (cap 64)", _build.build_log(path(64)), "64-entry stack")
         for name, path in (("bvh_traverse", pt.kernel_path), ("bvh4_traverse", pt.kernel4_path))}
@@ -3467,6 +3562,9 @@ def main() -> None:
 
     # 1b. the threefry kernel at the benchmark cells' bounce batches
     threefry_rows = _phase1b(torch)
+
+    # 1c. the row-accumulate kernel at the training cell's tables
+    accumulate_rows = _phase1c(torch)
 
     # 2. binary-kernel gate on the full courtyard
     dev = torch.device("cuda")
@@ -3781,6 +3879,14 @@ def main() -> None:
                     "bound_by": tf["bound_by"], "library_ms": None,
                     "library": "no single PyTorch call computes Threefry-2x32",
                     "cells": threefry_rows})
+    tri = accumulate_rows["triangles"]
+    kernels.append({"name": "row_accumulate", "route": "cuda",
+                    "source": "terra_tpu_torch/csrc/row_accumulate.cu", "replaces": None,
+                    "launches": main_launches["row_accumulate"], "max_abs_err": 0.0,
+                    "ms": tri["ms"], "plain_ms": tri["plain_ms"], "bound_ms": tri["bound_ms"],
+                    "bound_by": "bytes", "library_ms": tri["library_ms"],
+                    "library": "torch.Tensor.index_put_(accumulate=True), deterministic",
+                    "cases": accumulate_rows})
     for name, row in probe_rows.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "terra_tpu_torch/csrc/pattern_probes.cu",

@@ -33,10 +33,10 @@ units in one pool over one run's static buffers, reading the active count
 back between replays; ``profile.stage_breakdown`` times its stages as
 staged units.
 
-The traversal and threefry wrappers count launches when they enqueue a
-kernel, so a replay would count nothing. A unit records each graph's
-captured launches, takes them back out of the counters (the capture
-launched nothing), and adds them again on every replay.
+The traversal, threefry and row-accumulate wrappers count launches when
+they enqueue a kernel, so a replay would count nothing. A unit records
+each graph's captured launches, takes them back out of the counters (the
+capture launched nothing), and adds them again on every replay.
 
 Spans (``profile``): a unit's construction is ``terra.unit.capture``, its
 eager warm-up nested in it as ``terra.unit.warmup``; each graph replay is
@@ -61,7 +61,7 @@ from typing import Callable
 import torch
 
 from .accel import pallas_traverse
-from .ops import rng
+from .ops import rng, row_accumulate
 from .profile import profiler
 
 __all__ = ["Unit", "StagedUnit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit",
@@ -180,25 +180,29 @@ def _sync_debug_error():
 
 @contextlib.contextmanager
 def _taken_back():
-    """Yields a list that receives the (binary, bvh4, threefry) launches the
-    block enqueued, and restores the counters: a capture launches nothing."""
+    """Yields a list that receives the (binary, bvh4, threefry,
+    row_accumulate) launches the block enqueued, and restores the counters:
+    a capture launches nothing."""
     counts = []
-    l2, l4, lr = pallas_traverse.launches, pallas_traverse.launches4, rng.launches
+    l2, l4, lr, la = (pallas_traverse.launches, pallas_traverse.launches4, rng.launches,
+                      row_accumulate.launches)
     try:
         yield counts
     finally:
         counts[:] = [pallas_traverse.launches - l2, pallas_traverse.launches4 - l4,
-                     rng.launches - lr]
+                     rng.launches - lr, row_accumulate.launches - la]
         pallas_traverse.launches, pallas_traverse.launches4, rng.launches = l2, l4, lr
+        row_accumulate.launches = la
 
 
 def _add_back(counts) -> None:
-    """A replay's launches: the (binary, bvh4, threefry) counts its
-    capture recorded."""
-    n2, n4, nr = counts
+    """A replay's launches: the (binary, bvh4, threefry, row_accumulate)
+    counts its capture recorded."""
+    n2, n4, nr, na = counts
     pallas_traverse.launches += n2
     pallas_traverse.launches4 += n4
     rng.launches += nr
+    row_accumulate.launches += na
 
 
 _REPLAY_SPANS: dict = {}
@@ -279,9 +283,9 @@ class Unit:
 
     def describe(self) -> dict:
         """The unit's numbers; ``launches`` maps each stage to the (binary,
-        bvh4, threefry) kernel launches one replay of it makes; ``warmup_s``
-        is its ``terra.unit.warmup`` span, ``capture_s`` the rest of its
-        ``terra.unit.capture`` span."""
+        bvh4, threefry, row_accumulate) kernel launches one replay of it
+        makes; ``warmup_s`` is its ``terra.unit.warmup`` span, ``capture_s``
+        the rest of its ``terra.unit.capture`` span."""
         return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
                     pool_bytes=self.pool_bytes, replays=self.replays,
                     launches={s: c for s, (_, c) in self._graphs.items()},
@@ -357,8 +361,8 @@ class StagedUnit:
 
     def describe(self) -> dict:
         """The unit's numbers; ``launches`` maps each stage to the (binary,
-        bvh4, threefry) kernel launches one replay of it makes; ``warmup_s``
-        and ``capture_s`` as for :meth:`Unit.describe`."""
+        bvh4, threefry, row_accumulate) kernel launches one replay of it
+        makes; ``warmup_s`` and ``capture_s`` as for :meth:`Unit.describe`."""
         return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
                     pool_bytes=self.pool_bytes, replays=self.replays,
                     launches={s: c for s, (_, c, _) in self._graphs.items()})

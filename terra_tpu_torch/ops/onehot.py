@@ -27,6 +27,8 @@ import contextlib
 
 import torch
 
+from .row_accumulate import gather
+
 __all__ = ["MAX_ROWS", "full_f32", "one_hot", "pick", "product"]
 
 MAX_ROWS = 512
@@ -85,8 +87,9 @@ def product(onehot, table):
 def pick(table, idx, dtype=None):
     """``table[idx]``, one (rows, cols) row per id: by one-hot product (in
     ``dtype``, default the table's) when the table has at most
-    :data:`MAX_ROWS` rows, else by an index gather (ids must be in range)."""
+    :data:`MAX_ROWS` rows, else by an index gather (ids must be in range;
+    its backward ``row_accumulate``'s segmented sum where autograd records)."""
     rows = table.shape[0]
     if rows > MAX_ROWS:
-        return table[idx.long()]
+        return gather(table, idx.long())
     return product(one_hot(idx, rows, dtype or table.dtype), table)

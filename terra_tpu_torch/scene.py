@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .ops import math3
+from .ops.row_accumulate import gather
 from .profile import profiler
 
 __all__ = [
@@ -118,9 +119,9 @@ class Geometry:
         return self.tri_vidx.shape[0]
 
     def corners(self):
-        """World-space triangle corners, (T, 3) each."""
-        v = self.tri_vidx.long()
-        return self.positions[v[:, 0]], self.positions[v[:, 1]], self.positions[v[:, 2]]
+        """World-space triangle corners, (T, 3) each: views of one
+        ``row_accumulate.gather`` of the positions by ``tri_vidx``."""
+        return gather(self.positions, self.tri_vidx.long()).unbind(1)
 
     def areas(self):
         a, b, c = self.corners()

@@ -8,11 +8,13 @@ textures and positions from the wall albedo [0.3, 0.5, 0.6] and the
 textures halved, against the scene's own render (key 7). It prints
 
 - one eager backward (``optim.deterministic``) under ``torch.profiler``
-  with ``record_shapes``: each index accumulate (``_index_put_impl_``, the
-  backward of a gather ``table[idx]``) and each matrix product (``mm``)
-  grouped by input shape, with its calls and device ms, and the
-  backward's kernels by device time (a replayed graph records no op
-  shapes, so the attribution is taken eagerly);
+  with ``record_shapes``: each index accumulate (``_index_put_impl_``,
+  PyTorch's backward of a gather ``table[idx]``, and each
+  ``row_accumulate`` call, its sort and kernel launches, named by its
+  table shape and lanes) and each matrix
+  product (``mm``) grouped by input shape, with its calls and device ms,
+  and the backward's kernels by device time (a replayed graph records no
+  op shapes, so the attribution is taken eagerly);
 - ``--steps`` graphed steps (``optim.make_train_step``) after the one
   that captures, each followed by a host refit in place as ``recover``
   does: ms a step (host clock ending in a synchronisation), each stage
@@ -25,8 +27,11 @@ It needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import subprocess
 import time
@@ -37,6 +42,45 @@ import torch
 
 FIELDS = ("attrs", "textures", "positions")
 SHAPE_OPS = ("aten::_index_put_impl_", "aten::mm")
+ACCUMULATE = "row_accumulate"  # the record_function around each row_accumulate call
+LEVEL_KERNEL = "level_kernel"  # the row-accumulate kernel's name in the trace
+
+
+@contextlib.contextmanager
+def named_accumulates():
+    """Each ``row_accumulate`` call inside a ``record_function`` named by
+    its table shape and lanes (``row_accumulate [rows, cols] [lanes]``), so
+    the profiler sums the PyTorch kernels it launches (the sort, the zeroed
+    table) by shape. Yields the calls in order, (name, level launches), for
+    :func:`by_shape` to give each call its kernel's launches."""
+    from terra_tpu_torch.ops import row_accumulate as ra
+
+    calls, real = [], ra.row_accumulate
+
+    def named(grad, idx, rows):
+        cols = grad[0].numel() if idx.numel() else 0
+        name = f"{ACCUMULATE} {[rows, cols]} {[idx.numel()]}"
+        calls.append((name, len(ra.level_sizes(idx.numel())) if idx.numel() and cols else 0))
+        with torch.profiler.record_function(name):
+            return real(grad, idx, rows)
+
+    with mock.patch.object(ra, "row_accumulate", named):
+        yield calls
+
+
+def _level_ms(prof, calls) -> collections.Counter:
+    """{call name: device ms} of the row-accumulate kernel's launches (a
+    launch made through ctypes reaches the trace without the op that made
+    it): the launches in start order, given to the calls in call order,
+    one a level (the calls enqueue them in turn on one stream)."""
+    kernels = iter(sorted((e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and LEVEL_KERNEL in e.name), key=lambda e: e.time_range.start))
+    out = collections.Counter()
+    for name, levels in calls:
+        for e in itertools.islice(kernels, levels):
+            out[name] += e.time_range.elapsed_us() / 1e3
+    return out
 
 
 def _device_ms(event, self_time=False) -> float:
@@ -47,20 +91,37 @@ def _device_ms(event, self_time=False) -> float:
     return next(getattr(event, n) for n in names if hasattr(event, n)) / 1e3
 
 
-def by_shape(prof) -> list:
+def by_shape(prof, calls=()) -> list:
     """[(op, input shapes, calls, device ms)] of the profile's index
-    accumulates and matrix products, most device time first."""
+    accumulates (PyTorch's, and the row accumulates named by
+    :func:`named_accumulates`, whose shapes are the table's and the lanes'
+    and whose time is their PyTorch kernels' and their level launches')
+    and matrix products, most device time first."""
     rows = [(e.key, [list(s) for s in e.input_shapes if s], e.count, _device_ms(e))
             for e in prof.key_averages(group_by_input_shape=True) if e.key in SHAPE_OPS]
+    levels = _level_ms(prof, calls)
+    for e in prof.key_averages():
+        if e.key.startswith(ACCUMULATE + " ") and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            table, lanes = e.key[len(ACCUMULATE) + 1:].split("] [")
+            rows.append((ACCUMULATE, [json.loads(table + "]"), json.loads("[" + lanes)],
+                         e.count, _device_ms(e) + levels[e.key]))
     return sorted(rows, key=lambda r: -r[3])
 
 
 def top_kernels(prof, n: int = 12) -> list:
     """[(kernel, launches, device ms)] of the profile's kernels, most device
     time first."""
-    rows = [(e.key, e.count, _device_ms(e, self_time=True)) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_ms(e, True) > 0]
+    rows = [(e.key, e.count, _device_ms(e, self_time=True)) for e in _kernels(prof)]
     return sorted(rows, key=lambda r: -r[2])[:n]
+
+
+def _kernels(prof) -> list:
+    """The profile's kernels, averaged by name (not the device-side ranges
+    of :func:`named_accumulates`' annotations)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_ms(e, True) > 0
+            and not e.key.startswith(ACCUMULATE + " ")]
 
 
 def profile_backward(loss_fn, params, *args) -> dict:
@@ -83,13 +144,13 @@ def profile_backward(loss_fn, params, *args) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         loss = loss_fn(params, *args)
-        with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        with torch.profiler.profile(activities=acts, record_shapes=True) as prof, \
+                named_accumulates() as calls:
             torch.autograd.grad(loss, leaves, allow_unused=True)
             torch.cuda.synchronize()
-    kernels = [(e.count, _device_ms(e, True)) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [(e.count, _device_ms(e, True)) for e in _kernels(prof)]
     return {"forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
-            "by_shape": by_shape(prof), "top_kernels": top_kernels(prof),
+            "by_shape": by_shape(prof, calls), "top_kernels": top_kernels(prof),
             "kernel_launches": sum(k[0] for k in kernels),
             "kernel_ms": sum(k[1] for k in kernels)}
 

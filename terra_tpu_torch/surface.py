@@ -8,7 +8,9 @@ per-material and per-light data is packed into row tables built once per
 trace, and each lane fetches one row by :func:`fetch_rows`, the
 reference's rule: a table of at most ``ONEHOT_MAX_ROWS`` rows by a
 one-hot product in full f32 (``ops/onehot.py``; its backward a product,
-not an index accumulate), a larger one by an index gather.
+not an index accumulate), a larger one by an index gather
+(``ops/row_accumulate.py``: where autograd records, its backward a
+deterministic segmented sum).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from . import textures
 from .ops import math3, onehot
+from .ops.row_accumulate import gather
 from .scene import MAX_ATTRS, Scene
 
 __all__ = ["Surface", "ShadeTables", "build_shade_tables", "fetch_rows", "surface_init",
@@ -55,9 +58,9 @@ def build_shade_tables(scene: Scene) -> ShadeTables:
                      mats.attrs.reshape(m, MAX_ATTRS * 3)], dim=1)
     lt = scene.lights
     lti = lt.tri_idx.long()
-    la, lb, lc = va[lti], vb[lti], vc[lti]
-    ln = n[lti]
-    luv = uv[lti]
+    la, lb, lc = gather(va, lti), gather(vb, lti), gather(vc, lti)
+    ln = gather(n, lti)
+    luv = gather(uv, lti)
     area = 0.5 * math3.length(math3.cross(lb - la, lc - la))
     etid = mats.emissive_tex[lt.mat_id.long()].to(f)
     # lt.emissive is the commit-time NumPy copy, outside the gradient as in

@@ -8,6 +8,7 @@ import math
 import torch
 
 from .ops import math3
+from .ops.row_accumulate import gather
 from .scene import TextureAtlas
 
 __all__ = ["sample", "sample_latlong", "FILTER_POINT", "FILTER_BILINEAR", "ADDR_WRAP",
@@ -32,7 +33,7 @@ def _address(coord, size, mode):
 
 def _read(atlas: TextureAtlas, tex_id, x, y):
     """Texels at integer (x, y) of per-lane textures -> (N, 3), fetched by
-    one flat index into the row-major atlas."""
+    one flat index into the row-major atlas (``row_accumulate.gather``)."""
     tex_id = tex_id.long()
     h = atlas.size[tex_id, 0].long()
     w = atlas.size[tex_id, 1].long()
@@ -41,7 +42,7 @@ def _read(atlas: TextureAtlas, tex_id, x, y):
     y = _address(y, h, mode)
     nt, H, W, _ = atlas.data.shape
     flat = (tex_id * H + y) * W + x
-    return atlas.data.reshape(nt * H * W, 3)[flat]
+    return gather(atlas.data.reshape(nt * H * W, 3), flat)
 
 
 def sample(atlas: TextureAtlas, tex_id, uv):

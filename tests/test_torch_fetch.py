@@ -4,8 +4,9 @@ tables of 1, 4, 29, 512 and 513 rows: values bit for bit through an int32
 view (-0.0 entries and ids out of range included, which a product turns
 into +0.0 and zero rows), gradients against ``jax.grad`` within 1e-6 of
 the largest entry, the branch at 512 rows, the TF32 guard, and the
-courtyard training graph, whose backward keeps index accumulates only on
-tables of more than 512 rows."""
+courtyard training graph, whose backward accumulates into tables of more
+than 512 rows only, each through ``row_accumulate.RowGather``'s node and
+none through PyTorch's ``IndexBackward0``."""
 import collections
 import contextlib
 
@@ -95,8 +96,9 @@ def test_fetch_gradient_matches_jax(fn, rows):
 
 
 def _graph(out):
-    """(Counter of node names, Counter of the source shapes of the
-    IndexBackward0 nodes) of ``out``'s backward graph."""
+    """(Counter of node names, Counter of the table shapes of the
+    RowGatherBackward nodes, the backward of ``row_accumulate.gather``) of
+    ``out``'s backward graph."""
     seen, stack = set(), [out.grad_fn]
     names, index = collections.Counter(), collections.Counter()
     while stack:
@@ -105,8 +107,8 @@ def _graph(out):
             continue
         seen.add(node)
         names[type(node).__name__] += 1
-        if type(node).__name__ == "IndexBackward0":
-            index[tuple(node._saved_self_sym_sizes)] += 1
+        if type(node).__name__ == "RowGatherBackward":
+            index[node.table_shape] += 1
         stack.extend(f for f, _ in node.next_functions)
     return names, index
 
@@ -115,7 +117,8 @@ def _graph(out):
 def test_index_backward_only_above_512_rows(rows, nodes):
     table = torch.from_numpy(_table((rows, 26), rows)).requires_grad_(True)
     idx = torch.from_numpy(_ids(rows, 1, in_range=True))
-    assert _graph(surface.fetch_rows(table, idx).sum())[0]["IndexBackward0"] == nodes
+    names = _graph(surface.fetch_rows(table, idx).sum())[0]
+    assert names["RowGatherBackward"] == nodes and names["IndexBackward0"] == 0
 
 
 MATMUL_FLAGS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
@@ -162,8 +165,10 @@ def test_courtyard_training_graph_keeps_no_small_table_index():
     """Phase 6c's loss (DIRECT, 2 bounces, attrs, textures and positions)
     on a small courtyard at 32x32x2spp: the index accumulates left in its
     backward are the triangle, atlas, position and light-corner gathers
-    (21 nodes), none on a table of at most 512 rows; the material and
-    light tables (4 rows each) are fetched by product, once a surface."""
+    (19 nodes, each a RowGatherBackward, the positions' one gather by all
+    three corners among them; no IndexBackward0 is left), none
+    on a table of at most 512 rows; the material and light tables (4 rows
+    each) are fetched by product, once a surface."""
     scene = ttt.scenes.courtyard(grid=60, columns=8, device="cpu")
     cam = ttt.scenes.courtyard_camera(device="cpu")
     opts = ttt.RenderOptions(width=32, height=32, samples_per_pixel=2, bounces=2,
@@ -173,7 +178,8 @@ def test_courtyard_training_graph_keeps_no_small_table_index():
     params = optim._trainable(optim.extract_params(scene, ("attrs", "textures", "positions")))
     loss = loss_fn(params, scene, rng.key_from_seed(7), 0)
     names, index = _graph(loss)
-    assert sum(index.values()) == 21, index
+    assert sum(index.values()) == 19, index
     assert all(shape[0] > onehot.MAX_ROWS for shape in index), index
+    assert names["IndexBackward0"] == 0, names
     assert scene.materials.num_materials == 4 and scene.lights.tri_idx.shape[0] == 4
     assert names["_ProductBackward"] == 6, names

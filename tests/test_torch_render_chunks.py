@@ -26,7 +26,7 @@ from terra_tpu.render import render_chunks as j_render_chunks
 from terra_tpu_torch import camera as camera_mod
 from terra_tpu_torch import graphs, integrators, intersect
 from terra_tpu_torch.accel import pallas_traverse as tpt
-from terra_tpu_torch.ops import math3, rng
+from terra_tpu_torch.ops import math3, rng, row_accumulate
 from tests.test_golden import _assert_twin_match
 
 # ``ttt.render`` is the function; the module holds the units and the body
@@ -317,15 +317,18 @@ def test_replay_adds_captured_launches(monkeypatch):
     monkeypatch.setattr(tpt, "launches", 5)
     monkeypatch.setattr(tpt, "launches4", 7)
     monkeypatch.setattr(rng, "launches", 11)
+    monkeypatch.setattr(row_accumulate, "launches", 13)
     with graphs._taken_back() as counts:
         tpt.launches4 += 6  # as a capture's wrappers would count
         rng.launches += 3
-    assert counts == [0, 6, 3] and (tpt.launches, tpt.launches4, rng.launches) == (5, 7, 11)
+        row_accumulate.launches += 2
+    assert counts == [0, 6, 3, 2]
+    assert (tpt.launches, tpt.launches4, rng.launches, row_accumulate.launches) == (5, 7, 11, 13)
 
     unit = object.__new__(graphs.Unit)
     stubs = {s: _StubGraph() for s in graphs.Unit.STAGES}
-    unit._graphs = {"start": (stubs["start"], (0, 0, 1)), "step": (stubs["step"], (1, 6, 6)),
-                    "finish": (stubs["finish"], (0, 0, 0))}
+    unit._graphs = {"start": (stubs["start"], (0, 0, 1, 0)),
+                    "step": (stubs["step"], (1, 6, 6, 0)), "finish": (stubs["finish"], (0, 0, 0, 2))}
     unit.flag = torch.tensor(False)
     unit.steps, unit.trips_per_step, unit.replays = 4, 3, 0
     unit.out = torch.zeros(2)
@@ -333,6 +336,7 @@ def test_replay_adds_captured_launches(monkeypatch):
     assert out is unit.out and trips == 12
     assert [stubs[s].replays for s in graphs.Unit.STAGES] == [1, 4, 1]
     assert (tpt.launches, tpt.launches4, rng.launches) == (5 + 4, 7 + 24, 11 + 1 + 24)
+    assert row_accumulate.launches == 13 + 2
     unit.flag = torch.tensor(True)  # every lane finished after one block
     assert graphs.drive(unit)[1] == 3
     assert stubs["step"].replays == 5 and unit.replays == 2

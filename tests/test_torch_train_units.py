@@ -39,7 +39,7 @@ from terra_tpu_torch import graphs, interop, optim  # noqa: E402
 from terra_tpu_torch.accel import lbvh  # noqa: E402
 from terra_tpu_torch.accel import pallas_traverse as tpt  # noqa: E402
 from terra_tpu_torch.checkpoint import load_pytree, tree_leaves  # noqa: E402
-from terra_tpu_torch.ops import rng  # noqa: E402
+from terra_tpu_torch.ops import rng, row_accumulate  # noqa: E402
 from terra_tpu_torch.render import _set_inputs  # noqa: E402
 from tests.test_torch_bsdf import torch_one_thread  # noqa: E402,F401 (autouse fixture)
 from tests.test_torch_grad import _config4, _jkey, _twin_case  # noqa: E402
@@ -313,11 +313,13 @@ def test_train_replay_adds_captured_launches(monkeypatch):
     monkeypatch.setattr(tpt, "launches", 2)
     monkeypatch.setattr(tpt, "launches4", 3)
     monkeypatch.setattr(rng, "launches", 4)
+    monkeypatch.setattr(row_accumulate, "launches", 5)
     unit = object.__new__(graphs.TrainUnit)
     unit.stages = ("forward0", "forward1", "backward0", "backward1", "sum")
     stubs = {s: _StubGraph() for s in unit.stages}
     outs = {s: torch.zeros(1) for s in unit.stages}
-    unit._graphs = {s: (stubs[s], (0, 6, 3) if s.startswith("forward") else (0, 0, 0), outs[s])
+    counts = {"forward": (0, 6, 3, 0), "backward": (0, 0, 0, 7)}
+    unit._graphs = {s: (stubs[s], counts.get(s.rstrip("01"), (0, 0, 0, 0)), outs[s])
                     for s in unit.stages}
     unit.replays, unit.label, unit.warmup_s, unit.capture_s, unit.pool_bytes = 0, "stub", 0, 0, 0
     for _ in range(2):
@@ -326,7 +328,9 @@ def test_train_replay_adds_captured_launches(monkeypatch):
     assert all(g.replays == 2 for g in stubs.values())
     assert (tpt.launches, tpt.launches4) == (2, 3 + 2 * 2 * 6) and unit.replays == 2
     assert rng.launches == 4 + 2 * 2 * 3
-    assert unit.describe()["launches"]["forward1"] == (0, 6, 3)
+    assert row_accumulate.launches == 5 + 2 * 2 * 7
+    assert unit.describe()["launches"]["forward1"] == (0, 6, 3, 0)
+    assert unit.describe()["launches"]["backward0"] == (0, 0, 0, 7)
 
 
 def test_watched_objects_are_fingerprinted_by_identity():
