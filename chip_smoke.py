@@ -263,11 +263,10 @@ counts its own launches and reports them), the graphed renders of phase
 process counts its own launches and prints them on each line: a config's
 warm-up, its timed calls or renders and 3m's counted launch, not its
 gate). A replayed graph adds the launches its capture recorded
-(``graphs.Unit``, ``graphs.TrainUnit``, ``graphs.StagedUnit``).
-Each is run with the launch counts of the traversal kernels and of the
-threefry kernel set to 0 and read after (``_zero_launches``,
-``_launches``); launches that compare a kernel with its plain version,
-time it, gate it, or compare a sorted run with an unsorted one are not
+(``graphs.StagedUnit``, ``graphs.TrainUnit``). Each is run with the
+launch counter (``profile.kernel_launches``, by kernel name) cleared and
+read after; launches that compare a kernel with its plain version, time
+it, gate it, or compare a sorted run with an unsorted one are not
 counted. The bench of phase 11 counts the traversal kernels only.
 The last three lines are a JSON object describing the kernels (with each
 one's least time on the card, ``bound_ms``: the larger of the bytes its
@@ -298,7 +297,6 @@ from unittest import mock
 import numpy as np
 
 N_CHECK = 2048  # rays held against brute force
-LAUNCH_KEYS = ("binary", "bvh4", "threefry", "row_accumulate")  # kernels whose launches count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 RAY_BYTES = 32             # o, d in (24 B), t, tri out (8 B)
@@ -842,22 +840,6 @@ def _main_path_phase(torch, pt, batches, binary, footprint):
     return rows
 
 
-def _zero_launches(pt):
-    """Set the launch counts of the traversal kernels, the threefry kernel
-    and the row-accumulate kernel to 0, before a run of the main path."""
-    from terra_tpu_torch.ops import rng, row_accumulate
-
-    pt.launches = pt.launches4 = rng.launches = row_accumulate.launches = 0
-
-
-def _launches(pt) -> dict:
-    """The launch counts of each kernel since ``_zero_launches``."""
-    from terra_tpu_torch.ops import rng, row_accumulate
-
-    return {"binary": pt.launches, "bvh4": pt.launches4, "threefry": rng.launches,
-            "row_accumulate": row_accumulate.launches}
-
-
 def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
     """One render of the main path after a warm-up render of the same shape
     (which captures its launch units), with the launch counts of each
@@ -865,16 +847,17 @@ def _render(torch, ttt, pt, scene, cam, opts, label, check_unsorted=True):
     (captured anew), which must give the same film bit for bit. Returns
     (seconds, {kernel: launches}, film) of the sorted render."""
     from terra_tpu_torch import graphs
+    from terra_tpu_torch.profile import kernel_launches
 
     ttt.render(scene, cam, opts, seed=1)  # warm-up and capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches(pt)
+    kernel_launches.clear()
     t0 = time.perf_counter()
     film = ttt.render(scene, cam, opts, seed=0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = _launches(pt)
+    counts = kernel_launches.copy()
     img = ttt.develop(film)
     nominal = opts.width * opts.height * opts.samples_per_pixel * (opts.bounces + 1) * 2
     finite = bool(torch.isfinite(img).all())
@@ -949,10 +932,12 @@ def _sky_floor(torch, ttt, device):
     return ttt.commit(geom, mats, textures=atlas, env_tex=0, accelerator=ttt.Accelerator.BVH)
 
 
-def _material_twins(torch, ttt, pt):
+def _material_twins(torch, ttt):
     """Phase 4's material, environment and debug twins: each scene rendered
     on CPU tensors and on CUDA tensors, compared under the reference tests'
     budgets. Returns the launches of the CUDA halves."""
+    from terra_tpu_torch.profile import kernel_launches
+
     I, B = ttt.Integrator, ttt.BSDFType
     base = dict(width=32, height=32, samples_per_pixel=4, subpixel_jitter=0.5)
 
@@ -985,14 +970,15 @@ def _material_twins(torch, ttt, pt):
         imgs = []
         for device in ("cpu", "cuda"):
             t0 = time.perf_counter()
-            _zero_launches(pt)
+            kernel_launches.clear()
             f = ttt.render(make_scene(device), make_cam(device), opts, seed=3)
             imgs.append(f.mean().cpu().numpy())
             if device == "cuda":
-                launches.update(_launches(pt))
+                launches.update(kernel_launches)
             print(f"phase 4: {label} twin 32x32x4spp {opts.integrator.name} on {device}: "
                   f"{time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}, launches "
-                  f"binary {pt.launches} bvh4 {pt.launches4}", flush=True)
+                  f"binary {kernel_launches['binary']} bvh4 {kernel_launches['bvh4']}",
+                  flush=True)
         if not np.isfinite(imgs[1]).all() or not imgs[1].max() > 0.0:
             raise AssertionError(f"{label} twin rendered no finite light")
         _twin_match(imgs[1], imgs[0], *budget)
@@ -1137,6 +1123,7 @@ def _phase6ab(torch, ttt, pt, dev):
     """Phases 6a and 6b. Returns (launches of the main path {"binary",
     "bvh4"}, results)."""
     from terra_tpu_torch import optim
+    from terra_tpu_torch.profile import kernel_launches
 
     launches = collections.Counter()
     adam = functools.partial(torch.optim.Adam, lr=3e-2)
@@ -1172,13 +1159,13 @@ def _phase6ab(torch, ttt, pt, dev):
     for builder in ("sah", "lbvh"):
         bscene, bcam, bopts, btarget, bkey = _config4(torch, ttt, dev, ttt.Accelerator.BVH,
                                                       builder)
-        _zero_launches(pt)
+        kernel_launches.clear()
         bstep = optim.make_train_step(bcam, bopts, btarget, adam)
         bstate, bloss = bstep(optim.TrainState(optim.extract_params(bscene, ("attrs",)), None, 0),
                               bscene, bkey)
         torch.cuda.synchronize()
-        launches.update(_launches(pt))
-        step_l2, step_l4 = pt.launches, pt.launches4
+        launches.update(kernel_launches)
+        step_l2, step_l4 = kernel_launches["binary"], kernel_launches["bvh4"]
         _, (g1,) = _grad(torch, optim, bscene, bcam, bopts, btarget, bkey)
         _, (g2,) = _grad(torch, optim, bscene, bcam, bopts, btarget, bkey)
         same = _same_bits(g1, g2)
@@ -1238,6 +1225,7 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     from terra_tpu_torch import optim
     from terra_tpu_torch.accel import lbvh
     from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.profile import kernel_launches
 
     opts = _opts_6c(ttt).replace(width=side, height=side)
     fields = FIELDS_6C
@@ -1269,10 +1257,10 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     real_adam = torch.optim.Adam.step
 
     def vg(loss_fn, params, *args):
-        l4 = pt.launches4
+        l4 = kernel_launches["bvh4"]
         loss, grads = timed("forward+backward", real_vg,
                             lambda *a: timed("forward", loss_fn, *a), params, *args)
-        rec["bvh4 launches"].append(pt.launches4 - l4)
+        rec["bvh4 launches"].append(kernel_launches["bvh4"] - l4)
         finite = [bool(torch.isfinite(g).all()) for g in grads]
         rec["finite"].append(bool(torch.isfinite(loss)) and all(finite))
         if not all(finite):
@@ -1283,7 +1271,7 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    _zero_launches(pt)
+    kernel_launches.clear()
     t0 = time.perf_counter()
     with _eager_train(), mock.patch.object(optim, "value_and_grad", vg), \
             mock.patch.object(lbvh, "refit_", lambda *a: timed("refit", real_refit, *a)), \
@@ -1294,7 +1282,7 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
                                           learning_rate=3e-2, seed=7)
     torch.cuda.synchronize()
     total = (time.perf_counter() - t0) / 4 * 1e3
-    launches = collections.Counter(_launches(pt))
+    launches = kernel_launches.copy()
     peak = torch.cuda.max_memory_allocated()
     fwd = rec["forward"]
     bwd = [a - b for a, b in zip(rec["forward+backward"], fwd)]
@@ -1343,12 +1331,12 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
           flush=True)
     # the descent gate: the textures alone, from the same start
     two = ("textures",)
-    _zero_launches(pt)
+    kernel_launches.clear()
     rec2, losses2 = optim.recover(start, cam, opts, target, fields=two, steps=4,
                                   learning_rate=3e-2, seed=7)
     torch.cuda.synchronize()
-    launches2 = pt.launches4
-    launches.update(_launches(pt))
+    launches2 = kernel_launches["bvh4"]
+    launches.update(kernel_launches)
     with torch.no_grad():
         loss_two = float(loss_fn(optim.extract_params(rec2, two), rec2, key, 0))
     print(f"  loss on the same samples (key 7, offset 0): {loss_start:.6e} at the start; after 4 "
@@ -1426,6 +1414,7 @@ def _probe_phase(torch):
     import importlib
 
     from terra_tpu_torch import probes
+    from terra_tpu_torch.profile import kernel_launches
 
     x0 = probes.make_input("paged/probe1", "cuda")
     floors = {}  # threads -> the empty kernel's device ms
@@ -1438,10 +1427,10 @@ def _probe_phase(torch):
     for name, (module, fn) in PROBE_ENTRIES.items():
         body = probes.BODIES[name]
         entry = getattr(importlib.import_module(f"terra_tpu_torch.scripts.{module}"), fn)
-        probes.launches = 0
+        kernel_launches.clear()
         got, ok = entry("cuda")  # the user's entry point; prints the reference's line
         torch.cuda.synchronize()
-        n_launch = probes.launches
+        n_launch = kernel_launches["probe"]
         x = probes.make_input(name, "cuda")
         plain = probes.run_plain(name, x)
         words = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
@@ -1504,6 +1493,7 @@ def _phase1b(torch) -> dict:
     import terra_tpu_torch as ttt
     from terra_tpu_torch import probes
     from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.profile import kernel_launches
     from terra_tpu_torch.render import _streams_for
 
     dev = torch.device("cuda")
@@ -1545,7 +1535,7 @@ def _phase1b(torch) -> dict:
         sample = torch.as_tensor(gen.integers(0, 1 << 22, n), device=dev)
         lane_bounce = torch.as_tensor(gen.integers(0, 5, n), device=dev)
         words = 0
-        rng.launches = 0
+        kernel_launches.clear()
         for key in (key_dev, key_ints):
             for bounce in (lane_bounce, 1):
                 got = rng.path_uniform_bundle(key, pixel, sample, bounce, streams)
@@ -1557,9 +1547,9 @@ def _phase1b(torch) -> dict:
             words += sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
                          for a, b in zip(got, ref))
         torch.cuda.synchronize()
-        if words or rng.launches != 6:
+        if words or kernel_launches["threefry"] != 6:
             raise AssertionError(f"threefry at {cell}: {words} words differ from the plain "
-                                 f"chain, {rng.launches} launches (6 expected)")
+                                 f"chain, {kernel_launches['threefry']} launches (6 expected)")
         row = dict(lanes=n, bases=nb, sass=dict(mixes[nb]))
         row["ms"] = graph_ms(lambda: rng.path_uniform_bundle(
             key_dev, pixel, sample, lane_bounce, streams), 100)
@@ -1578,7 +1568,7 @@ def _phase1b(torch) -> dict:
               f"{row['jitter_ms'] * 1e3:.2f} us (bound {row['jitter_bound_ms'] * 1e3:.2f} us; "
               f"plain {row['plain_jitter_ms'] * 1e3:.1f} us)", flush=True)
         out[cell] = row
-    rng.launches = 0  # the comparisons and timings are not the main path's
+    kernel_launches.clear()  # the comparisons and timings are not the main path's
     return out
 
 
@@ -1594,6 +1584,7 @@ def _phase1c(torch) -> dict:
     the plain version's on the CPU word for word, and to a second call."""
     from terra_tpu_torch import optim
     from terra_tpu_torch.ops import row_accumulate as ra
+    from terra_tpu_torch.profile import kernel_launches
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(22)
@@ -1610,16 +1601,17 @@ def _phase1c(torch) -> dict:
         grad[torch.rand((n, cols), generator=gen) < 0.1] = -0.0
         want = ra.row_accumulate_plain(grad, ids, rows)
         g, i = grad.to(dev), ids.to(dev)
-        ra.launches = 0
+        kernel_launches.clear()
         a = ra.row_accumulate(g, i, rows)
         b = ra.row_accumulate(g, i, rows)
         torch.cuda.synchronize()
         words = int((a.cpu().view(torch.int32) != want.view(torch.int32)).sum())
         repeat = torch.equal(a.view(torch.int32), b.view(torch.int32))
         levels = len(ra.level_sizes(n))
-        if words or not repeat or ra.launches != 2 * levels:
+        if words or not repeat or kernel_launches["row_accumulate"] != 2 * levels:
             raise AssertionError(f"row_accumulate at {name}: {words} words differ from the plain "
-                                 f"version, bits repeat {repeat}, {ra.launches} launches "
+                                 f"version, bits repeat {repeat}, "
+                                 f"{kernel_launches['row_accumulate']} launches "
                                  f"({2 * levels} expected)")
 
         def library():
@@ -1641,7 +1633,7 @@ def _phase1c(torch) -> dict:
               f"{row['library_ms'] * 1e3:.1f} us in a graph (max rel to the kernel "
               f"{row['library_max_rel']:.2e})", flush=True)
         out[name] = row
-    ra.launches = 0  # the comparisons and timings are not the main path's
+    kernel_launches.clear()  # the comparisons and timings are not the main path's
     return out
 
 
@@ -1778,12 +1770,13 @@ def _phase7a(torch, ttt, scene, tmp):
     return path
 
 
-def _phase7(torch, ttt, pt, scene, render_3b_s):
+def _phase7(torch, ttt, scene, render_3b_s):
     """Phase 7: the command line at full width. Returns the launches of the
     in-process CLI runs {"binary", "bvh4"}, and 7c's render clock per pass
     (the first pass captures the render's graphs)."""
     from terra_tpu_torch import _build, cli, profile
     from terra_tpu_torch.io import image as image_mod
+    from terra_tpu_torch.profile import kernel_launches
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="terra_tpu_torch_cli_")
@@ -1849,12 +1842,13 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
     def render_pass(*a, **k):
         # the profiler's render clock so far: its sum before each pass
         clock_sums.append(profile.profiler.stats("render").sum)
-        l2, l4 = pt.launches, pt.launches4
+        before = kernel_launches.copy()
         t0 = time.perf_counter()
         film = real_render(*a, **k)
         torch.cuda.synchronize()
-        per_pass.append({"s": time.perf_counter() - t0, "binary": pt.launches - l2,
-                         "bvh4": pt.launches4 - l4,
+        ran = kernel_launches - before
+        per_pass.append({"s": time.perf_counter() - t0, "binary": ran["binary"],
+                         "bvh4": ran["bvh4"],
                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         return film
 
@@ -1872,7 +1866,7 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
                mock.patch.object(profile, "stage_breakdown",
                                  _timed(times, "stats", profile.stage_breakdown, sync))]
     cwd = os.getcwd()
-    _zero_launches(pt)
+    kernel_launches.clear()
     try:
         for p in patches:
             p.start()
@@ -1885,7 +1879,7 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
         os.chdir(cwd)
         for p in patches:
             p.stop()
-    launches = collections.Counter(_launches(pt))
+    launches = kernel_launches.copy()
     acc_in, spp_in = _film_npz(ck_in)
     same = acc_in.tobytes() == acc16.tobytes() and np.array_equal(spp_in, spp16)
     nominal = profile.ray_count(ttt.RenderOptions(width=384, height=384, samples_per_pixel=8,
@@ -1918,8 +1912,7 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
     imgs = {}
     for device in ("cpu", "cuda"):
         ck_d = os.path.join(tmp, f"ck_{device}.npz")
-        before = _launches(pt)
-        l2, l4 = pt.launches, pt.launches4
+        before = kernel_launches.copy()
         t0 = time.perf_counter()
         cwd = os.getcwd()
         try:
@@ -1929,14 +1922,15 @@ def _phase7(torch, ttt, pt, scene, render_3b_s):
                            "render_jitter=0.5", "--checkpoint", ck_d, "--device", device])
         finally:
             os.chdir(cwd)
+        ran = kernel_launches - before
         if device == "cuda":
-            launches.update({k: v - before[k] for k, v in _launches(pt).items()})
+            launches.update(ran)
         acc, spp = _film_npz(ck_d)
         imgs[device] = acc / np.maximum(spp, 1)[..., None]
         print(f"phase 7d: CLI on the small courtyard (grid 40, 8 columns) 32x32x4spp DIRECT "
               f"--device {device}: rc {rc}, {time.perf_counter() - t0:.2f} s, mean "
-              f"{imgs[device].mean():.5f}, launches binary {pt.launches - l2} bvh4 "
-              f"{pt.launches4 - l4}", flush=True)
+              f"{imgs[device].mean():.5f}, launches binary {ran['binary']} bvh4 "
+              f"{ran['bvh4']}", flush=True)
         if rc != 0 or not np.isfinite(imgs[device]).all() or not imgs[device].mean() > 0.0:
             raise AssertionError(f"phase 7d: the CLI on {device} failed")
     _twin_match(imgs["cuda"], imgs["cpu"], *GOLDEN)
@@ -2023,10 +2017,10 @@ def _rank_job(argv) -> None:
     import terra_tpu_torch as ttt
     from terra_tpu_torch import graphs, optim
     from terra_tpu_torch.accel import lbvh
-    from terra_tpu_torch.accel import pallas_traverse as pt
     from terra_tpu_torch.ops import rng
     from terra_tpu_torch.parallel import distributed
     from terra_tpu_torch.parallel.mesh import band_rows_of, gather_rows, make_mesh, render_sharded
+    from terra_tpu_torch.profile import kernel_launches
 
     p = argparse.ArgumentParser()
     p.add_argument("--rank-job", choices=("shard", "nccl"))
@@ -2054,13 +2048,13 @@ def _rank_job(argv) -> None:
         for i in range(3):
             torch.cuda.synchronize()
             dist.barrier()
-            _zero_launches(pt)
+            kernel_launches.clear()
             t0 = time.perf_counter()
             film = render_sharded(scene, cam, opts, mesh, seed=0)
             torch.cuda.synchronize()
             dist.barrier()
             seconds.append(time.perf_counter() - t0)
-            launches.append(list(_launches(pt).values()))
+            launches.append(dict(kernel_launches))
             if i == 0:
                 rows = band_rows_of(mesh, opts.height)
                 acc = gather_rows(film.acc, rows, opts.height, mesh)
@@ -2076,7 +2070,7 @@ def _rank_job(argv) -> None:
     start = _start_6c(torch, optim, scene)
     key = rng.key_from_seed(7)
     params = optim._trainable(optim.extract_params(start, FIELDS_6C))
-    _zero_launches(pt)
+    kernel_launches.clear()
     grads_by = {}
     for chunks in ((1, 2) if args.rank_job == "shard" else (2,)):
         grads_by[chunks] = optim.make_grad_fn_sharded(cam, o6, target, mesh, grad_chunks=chunks)(
@@ -2089,7 +2083,7 @@ def _rank_job(argv) -> None:
                                          functools.partial(torch.optim.Adam, lr=3e-2), mesh,
                                          grad_chunks=2)
     steps = _train_2(torch, optim, lbvh, step, start, key)
-    train_launches = list(_launches(pt).values())
+    train_launches = dict(kernel_launches)
     # 10d: the same bodies run uncaptured, op by op (launches not counted)
     with _eager_units():
         loss_e, grads_e = optim.make_grad_fn_sharded(cam, o6, target, mesh, grad_chunks=2)(
@@ -2226,11 +2220,10 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
         acc = np.load(os.path.join(out, f"film_{label}.npy"))
         n = np.load(os.path.join(out, f"samples_{label}.npy"))
         med = float(np.median(rows[0][label]["seconds"]))
-        per_rank = [sum(x[1] for x in rk[label]["launches"]) for rk in rows]
+        per_rank = [sum(x.get("bvh4", 0) for x in rk[label]["launches"]) for rk in rows]
         for rk in rows:
-            launches.update(binary=sum(x[0] for x in rk[label]["launches"]),
-                            bvh4=sum(x[1] for x in rk[label]["launches"]),
-                            threefry=sum(x[2] for x in rk[label]["launches"]))
+            for x in rk[label]["launches"]:
+                launches.update(x)
         bit = bool(np.array_equal(acc, ref))
         dmax = float(np.abs(acc - ref).max())
         bound = 1e-5 * float(np.abs(ref).max())
@@ -2277,7 +2270,7 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
     own_rel = [abs(a - b) / abs(b) for a, b in zip(losses, own)]
     flips = {k: int(((p_sh[k] - ref_steps[0][1][k]).abs() > 3e-2).sum()) for k in FIELDS_6C}
     for rk in ranks:
-        launches.update(dict(zip(LAUNCH_KEYS, rk["train_launches"])))
+        launches.update(rk["train_launches"])
     print(f"phase 8b: phase 6c's gradient at mesh (2, 2) (384x384x8spp, fields {FIELDS_6C}): loss "
           f"{g2['loss']:.6e} vs unsharded {float(loss0):.6e} (rel {loss_rel:.2e}); grad_chunks 2 "
           f"vs unsharded, max |d| / largest entry per field "
@@ -2296,9 +2289,9 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
           f"{ {k: int(v.numel()) for k, v in ref_steps[0][1].items()} }", flush=True)
     print(f"  parameters and refit boxes bit-identical across the 4 ranks after each step {same}; "
           f"BVH4 launches per rank (gradients + steps) "
-          f"{[rk['train_launches'][1] for rk in ranks]}; phase 8a-b {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
-    launches.update(dict(zip(LAUNCH_KEYS, nccl["train_launches"])))
+          f"{[rk['train_launches'].get('bvh4', 0) for rk in ranks]}; phase 8a-b "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches.update(nccl["train_launches"])
     for label, rks in (("4 gloo ranks at mesh (2, 2)", ranks), ("1 NCCL rank at (1, 1)", [nccl])):
         d = [rk["10d"] for rk in rks]
         grad_ok = all(all(x["grad_bits"]) for x in d)
@@ -2471,22 +2464,23 @@ def _phase8d(torch, pt, scene, cam, bounce):
 
 # --- phase 9: the launch units as CUDA graphs --------------------------------
 
-def _render_once(torch, ttt, pt, render_mod, scene, cam, opts, seed, film=None, eager=False):
+def _render_once(torch, ttt, render_mod, scene, cam, opts, seed, film=None, eager=False):
     """One ``render`` (eager through ``render_rows`` or through the graphs),
     timed on the host clock ending in a synchronisation. Returns (film,
-    seconds, loop trips, (binary, bvh4, threefry) launches, peak allocated
-    bytes)."""
+    seconds, loop trips, {kernel: launches}, peak allocated bytes)."""
     import contextlib
+
+    from terra_tpu_torch.profile import kernel_launches
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     render_mod.trips = 0
-    _zero_launches(pt)
+    kernel_launches.clear()
     t0 = time.perf_counter()
     with _eager() if eager else contextlib.nullcontext():
         film = ttt.render(scene, cam, opts, seed=seed, film=film)
     torch.cuda.synchronize()
-    return (film, time.perf_counter() - t0, render_mod.trips, tuple(_launches(pt).values()),
+    return (film, time.perf_counter() - t0, render_mod.trips, kernel_launches.copy(),
             torch.cuda.max_memory_allocated())
 
 
@@ -2644,6 +2638,7 @@ def _ray_zero_gate(torch, ttt, pt, dev) -> collections.Counter:
     eager call's word for word. Returns the graphed call's launches."""
     from terra_tpu_torch import intersect
     from terra_tpu_torch.accel import compact
+    from terra_tpu_torch.profile import kernel_launches
 
     sc = ttt.scenes.random_triangles(3000, seed=5, accelerator=ttt.Accelerator.BVH, device=dev)
     tables = pt.pack_tables_wide(sc.bvh, *sc.geometry.corners())
@@ -2663,10 +2658,10 @@ def _ray_zero_gate(torch, ttt, pt, dev) -> collections.Counter:
     ref_t, ref_i = ref_t[perm], ref_i[perm]
     stats = {}
     compact.raycast_compact(sc.bvh, tables, fr, o, d, stats=stats)  # captures
-    _zero_launches(pt)
+    kernel_launches.clear()
     got = compact.raycast_compact(sc.bvh, tables, fr, o, d, stats=stats)
     torch.cuda.synchronize()
-    launches = collections.Counter(_launches(pt))
+    launches = kernel_launches.copy()
     eager = compact.raycast_compact_eager(sc.bvh, tables, fr, o, d)
     hit = ref_t < intersect.T_FAR
     words = _tensor_words(torch, got.t, eager.t) + _tensor_words(torch, got.tri, eager.tri)
@@ -2712,6 +2707,7 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
 
     from terra_tpu_torch import graphs
     from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.profile import kernel_launches
 
     render_mod = importlib.import_module("terra_tpu_torch.render")
     t_phase = time.perf_counter()
@@ -2720,9 +2716,9 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
     results = {}
 
     def run(scene, cam, opts, seed, film=None, eager=False):
-        out = _render_once(torch, ttt, pt, render_mod, scene, cam, opts, seed, film, eager)
+        out = _render_once(torch, ttt, render_mod, scene, cam, opts, seed, film, eager)
         if not eager:
-            launches.update(dict(zip(LAUNCH_KEYS, out[3])))
+            launches.update(out[3])
         return out
 
     for label, scene, cam, opts in cells:
@@ -2735,8 +2731,9 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
         fg7, _, trips_g, l_g, _ = run(scene, cam, opts, 7, film=fg)
         unit = graphs.units()[-1]
         w0, w7 = _words(torch, fe, fg), _words(torch, fe7, fg7)
-        per_trip = unit["launches"].get("step", (0, 0))[1] / max(unit["trips_per_step"], 1)
-        l_ok = l_g[1] - l_e[1] == (trips_g - trips_e) * per_trip and l_g[0] == l_e[0]
+        per_trip = unit["launches"].get("step", {}).get("bvh4", 0) / max(unit["trips_per_step"], 1)
+        l_ok = l_g["bvh4"] - l_e["bvh4"] == (trips_g - trips_e) * per_trip and \
+            l_g["binary"] == l_e["binary"]
         n_units = len(graphs.units())
         print(f"phase 9a: {label}: graphed film vs eager (render_rows order) {w0} words differ; "
               f"seed 7 resumed at sample offset {opts.samples_per_pixel} on the same graph "
@@ -2744,7 +2741,7 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
               f"{trips_e} graph {trips_g} "
               f"(blocks of {unit['trips_per_step']}, bound "
               f"{unit['trips_per_step'] * unit['max_steps']}); launches per render eager "
-              f"{l_e} graph {l_g} (bvh4 per trip {per_trip:g}); graph stages launch "
+              f"{dict(l_e)} graph {dict(l_g)} (bvh4 per trip {per_trip:g}); graph stages launch "
               f"{unit['launches']}", flush=True)
         if w0 or w7 or not l_ok or n_units != 1 or trips_g < trips_e:
             failed.append(f"{label}: films, trips or launches")
@@ -2795,12 +2792,12 @@ def _phase9(torch, ttt, pt, cells, cli_passes):
         key = rng.key_from_seed(3)
         key_t = torch.tensor(key, dtype=torch.int64, device=dev)
         for row0 in (0, opts.height // 2, opts.height - rows):
-            _zero_launches(pt)
+            kernel_launches.clear()
             band = render_mod.render_band(scene, cam, opts, key_t,
                                           torch.tensor(8, device=dev),
                                           torch.tensor(row0, device=dev),
                                           opts.samples_per_pixel, rows)
-            launches.update(_launches(pt))
+            launches.update(kernel_launches)
             ref = render_mod.render_rows(scene, cam, opts, key, 8, opts.samples_per_pixel, row0,
                                          rows)
             w = int((band.view(torch.int32) != ref.view(torch.int32)).sum())
@@ -2920,7 +2917,7 @@ def _turns(torch, fns: dict, states: dict, scene, key, n: int = 20) -> tuple:
     return dict(ev), dict(host)
 
 
-def _phase10ab(torch, ttt, pt, dev):
+def _phase10ab(torch, ttt, dev):
     """Phases 10a and 10b: config 4's graphed step. 10a, by brute force:
     the first step's loss and gradient against ``value_and_grad`` at the
     same state and offset (bit for bit), 20 more steps on each side with
@@ -2932,6 +2929,7 @@ def _phase10ab(torch, ttt, pt, dev):
     replays from the same parameters and offset bit for bit. Returns
     (launches of the main path, results)."""
     from terra_tpu_torch import graphs, optim
+    from terra_tpu_torch.profile import kernel_launches
 
     adam = functools.partial(torch.optim.Adam, lr=3e-2)
     launches = collections.Counter()
@@ -2940,13 +2938,13 @@ def _phase10ab(torch, ttt, pt, dev):
     scene, cam, opts, target, key = _config4(torch, ttt, dev)
     p0 = optim.extract_params(scene, ("attrs",))
     step = optim.make_train_step(cam, opts, target, adam)
-    _zero_launches(pt)
+    kernel_launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sg, loss_g = step(optim.TrainState(p0, None, 0), scene, key)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches.update(_launches(pt))
+    launches.update(kernel_launches)
     grad_g = sg.params["attrs"].grad.clone()
     loss_e, (grad_e,) = optim.value_and_grad(optim.make_loss_fn(cam, opts, target),
                                              optim._trainable(p0), scene, key, 0)
@@ -2987,29 +2985,29 @@ def _phase10ab(torch, ttt, pt, dev):
                                                       builder)
         bp0 = optim.extract_params(bscene, ("attrs",))
         bstep = optim.make_train_step(bcam, bopts, btarget, adam)
-        _zero_launches(pt)
+        kernel_launches.clear()
         st, _ = bstep(optim.TrainState(bp0, None, 0), bscene, bkey)  # warm-up, capture, replay
         torch.cuda.synchronize()
-        launches.update(_launches(pt))
+        launches.update(kernel_launches)
         g1 = st.params["attrs"].grad.clone()
         ga, gb = g1[0, 0].double(), g_brute[0, 0].double()
         rel = float((ga - gb).abs().max() / gb.abs().max())
-        _zero_launches(pt)
+        kernel_launches.clear()
         st, _ = bstep(st, bscene, bkey)  # a replay
         torch.cuda.synchronize()
-        l_replay = (pt.launches, pt.launches4)
-        launches.update(_launches(pt))
-        _zero_launches(pt)
+        l_replay = (kernel_launches["binary"], kernel_launches["bvh4"])
+        launches.update(kernel_launches)
+        kernel_launches.clear()
         optim.value_and_grad(optim.make_loss_fn(bcam, bopts, btarget),
                              optim._trainable(bp0), bscene, bkey, 8)
         torch.cuda.synchronize()
-        l_eager = (pt.launches, pt.launches4)
+        l_eager = (kernel_launches["binary"], kernel_launches["bvh4"])
         # a replay from the first step's parameters and offset again
         with torch.no_grad():
             st.params["attrs"].copy_(bp0["attrs"])
-        _zero_launches(pt)
+        kernel_launches.clear()
         st, _ = bstep(optim.TrainState(st.params, st.opt_state, 0), bscene, bkey)
-        launches.update(_launches(pt))
+        launches.update(kernel_launches)
         replay_bits = _same_bits(st.params["attrs"].grad, g1)
 
         def f(x):
@@ -3022,11 +3020,11 @@ def _phase10ab(torch, ttt, pt, dev):
 
         attrs = bscene.materials.attrs.clone()
         attrs[0, 0, :] = 0.73
-        _zero_launches(pt)
+        kernel_launches.clear()
         fst, _ = optim.make_train_step(bcam, bopts, 0.5 * btarget, adam)(
             optim.TrainState({"attrs": attrs}, None, 0), bscene, bkey)
         torch.cuda.synchronize()
-        launches.update(_launches(pt))
+        launches.update(kernel_launches)
         g = float(fst.params["attrs"].grad[0, 0].sum())
         fd = (f(0.73 + 1e-2) - f(0.73 - 1e-2)) / 2e-2
         fd_rel = abs(g - fd) / max(abs(fd), 1e-3)
@@ -3066,6 +3064,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
     from terra_tpu_torch import graphs, optim
     from terra_tpu_torch.accel import lbvh
     from terra_tpu_torch.ops import rng
+    from terra_tpu_torch.profile import kernel_launches
 
     opts = _opts_6c(ttt).replace(width=side, height=side)
     with torch.no_grad():
@@ -3130,7 +3129,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches(pt)
+    kernel_launches.clear()
     with mock.patch.object(graphs.TrainUnit, "__init__", init), \
             mock.patch.object(graphs.TrainUnit, "replay", replay), \
             mock.patch.object(pt, "traverse_packed", spy), \
@@ -3141,7 +3140,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
         torch.cuda.synchronize()
     unit = captures[0].describe()
     step_ms, refit_ms = step_ms[:4], refit_ms[:4]
-    launches = _launches(pt)
+    launches = kernel_launches.copy()
     peak = torch.cuda.max_memory_allocated()
     by_step = collections.defaultdict(list)
     for stage, a, b in stage_ev:
@@ -3182,8 +3181,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
           f"a step); peak memory {peak / 2**30:.2f} GiB beside a pool of "
           f"{unit['pool_bytes'] / 2**30:.2f} GiB (6c eager peak {eager['peak_gib']:.2f} GiB); "
           f"launches binary {launches['binary']} bvh4 {launches['bvh4']} row_accumulate "
-          f"{launches['row_accumulate']}; stage launches (binary, bvh4, threefry, "
-          f"row_accumulate) {unit['launches']}", flush=True)
+          f"{launches['row_accumulate']}; stage launches {unit['launches']}", flush=True)
     busy = sum(r[1] for r in profiled)
     print(f"  the fifth step's backward under the profiler: {sum(r[2] for r in profiled)} "
           f"kernels, {busy:.1f} ms of kernel time; by name:", flush=True)
@@ -3202,7 +3200,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
     backward_profile.print_profile(by_shape, indent="    ")
     ok = len(captures) == 1 and tables_equal and hits_equal and moved and \
         (all(same_steps) or rel <= 2e-3) and all(np.isfinite(losses)) and \
-        launches["row_accumulate"] > 0 and unit["launches"]["backward"][3] > 0
+        launches["row_accumulate"] > 0 and unit["launches"]["backward"].get("row_accumulate", 0) > 0
     if not ok:
         raise AssertionError("phase 10c failed a gate")
     captures.clear()
@@ -3245,7 +3243,7 @@ def _phase10e(torch, ttt, dev):
     return raised
 
 
-def _phase10f(torch, ttt, pt, scene, cam):
+def _phase10f(torch, ttt, scene, cam):
     """Phase 10f: the small-table fetches by one-hot product
     (``ops/onehot.py``). The TF32 gate: with ``allow_tf32`` set and
     ``set_float32_matmul_precision("high")``, ``surface.fetch_rows`` and
@@ -3266,6 +3264,7 @@ def _phase10f(torch, ttt, pt, scene, cam):
 
     from terra_tpu_torch import graphs, optim, surface
     from terra_tpu_torch.ops import distributions, onehot, rng
+    from terra_tpu_torch.profile import kernel_launches
 
     dev = scene.geometry.positions.device
     n = 384 * 384 * 8
@@ -3342,7 +3341,7 @@ def _phase10f(torch, ttt, pt, scene, cam):
 
     graphs.clear()
     step = optim.make_train_step(cam, opts, target, functools.partial(torch.optim.Adam, lr=3e-2))
-    _zero_launches(pt)
+    kernel_launches.clear()
     with mock.patch.object(graphs.TrainUnit, "replay", replay), \
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -3350,7 +3349,7 @@ def _phase10f(torch, ttt, pt, scene, cam):
                          start, key)
         _, loss2 = step(optim.TrainState(s1.params, s1.opt_state, 0), start, key)
         torch.cuda.synchronize()
-        launches = _launches(pt)
+        launches = kernel_launches.copy()
         loss_e, grads_e = optim.value_and_grad(
             optim.make_loss_fn(cam, opts, target),
             optim._trainable(optim.extract_params(start, FIELDS_6C)), start, key, 0)
@@ -3508,7 +3507,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
 
-    from terra_tpu_torch.profile import card
+    from terra_tpu_torch.profile import card, kernel_launches
 
     # 0. the card
     smi = card()
@@ -3679,10 +3678,10 @@ def main() -> None:
     sort_ms = _ms(lambda: traverse.sort_order(mega.bvh, o_u, d_u, "dir3"), 20)
     order = traverse.sort_order(mega.bvh, o_u, d_u, "dir3")
     o_m, d_m = o_u[order].contiguous(), d_u[order].contiguous()
-    _zero_launches(pt)
+    kernel_launches.clear()
     bt, bi = pt.traverse_packed(packed, o_m, d_m)
     torch.cuda.synchronize()
-    main_launches.update(_launches(pt))
+    main_launches.update(kernel_launches)
     tp_ms = _ms(lambda: pt.traverse_packed(packed, o_m, d_m), 20)
     c = pt.count_decode(pt.traverse_packed(packed, o_m, d_m, count_steps=True)[2])
     hits = int((bt < intersect.T_FAR).sum())
@@ -3726,9 +3725,9 @@ def main() -> None:
     # 3c. the compacted two-phase traversal (compact_bench's workload)
     print("phase 3c: compact_bench --M 128 256 (1M courtyard, 2^20 dir3-sorted camera rays)",
           flush=True)
-    _zero_launches(pt)
+    kernel_launches.clear()
     bench = compact_bench.main(["--M", "128", "256"])
-    main_launches.update(_launches(pt))
+    main_launches.update(kernel_launches)
     for m, row in bench["M"].items():
         print(f"  M={m}: F={row['F']}, rounds {row['rounds']}, compact {row['compact_s']:.4f} s "
               f"vs classic {bench['classic_s']:.4f} s (host clock, least of 3), hit-mask "
@@ -3758,19 +3757,20 @@ def main() -> None:
         with mock.patch.object(pt, "pack_tables_auto", packer(pt)):
             for device in ("cpu", "cuda"):
                 t0 = time.perf_counter()
-                _zero_launches(pt)
+                kernel_launches.clear()
                 f = ttt.render(small[device], ttt.scenes.courtyard_camera(device=device), topts,
                                seed=3)
                 imgs.append(f.mean().cpu().numpy())
                 if device == "cuda":
-                    main_launches.update(_launches(pt))
+                    main_launches.update(kernel_launches)
                 print(f"phase 4: {kind} tables, small courtyard "
                       f"({small[device].geometry.num_triangles} tris) 32x32x4spp DIRECT on "
                       f"{device}: {time.perf_counter() - t0:.2f} s, mean {imgs[-1].mean():.5f}, "
-                      f"launches binary {pt.launches} bvh4 {pt.launches4}", flush=True)
+                      f"launches binary {kernel_launches['binary']} bvh4 "
+                      f"{kernel_launches['bvh4']}", flush=True)
         graphs.clear()
         _twin_match(imgs[1], imgs[0])
-    main_launches.update(_material_twins(torch, ttt, pt))
+    main_launches.update(_material_twins(torch, ttt))
 
     # 5. the pattern probes through their entry points
     probe_rows = _probe_phase(torch)
@@ -3785,7 +3785,7 @@ def main() -> None:
 
     # 7. the command line at full width: the courtyard exported to OBJ and
     # rendered through `python -m terra_tpu_torch render` and `cli.main`
-    launches7, cli_passes = _phase7(torch, ttt, pt, scene, render_3b_s)
+    launches7, cli_passes = _phase7(torch, ttt, scene, render_3b_s)
     main_launches.update(launches7)
 
     # 8. row x sample sharding on torch.distributed (8a-8c), and the
@@ -3809,12 +3809,12 @@ def main() -> None:
     # eager (10a, 10b), the courtyard recover (10c), a planted host read
     # (10e); the sharded step (10d) ran in phase 8's ranks
     t10 = time.perf_counter()
-    launches10, train10 = _phase10ab(torch, ttt, pt, dev)
+    launches10, train10 = _phase10ab(torch, ttt, dev)
     main_launches.update(launches10)
     launches10c, train10["10c"] = _phase10c(torch, ttt, pt, scene, cam, inverse["6c"])
     main_launches.update(launches10c)
     _phase10e(torch, ttt, dev)
-    launches10f, train10["10f"] = _phase10f(torch, ttt, pt, scene, cam)
+    launches10f, train10["10f"] = _phase10f(torch, ttt, scene, cam)
     main_launches.update(launches10f)
     train10["10f"]["ab"] = _fetch_ab(torch, ttt, [("3b", scene, cam, opts),
                                                    ("sky", sky, cam, s_opts),
@@ -3831,7 +3831,7 @@ def main() -> None:
 
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
-    if any(main_launches[k] <= 0 for k in LAUNCH_KEYS) or \
+    if any(main_launches[k] <= 0 for k in ("binary", "bvh4", "threefry", "row_accumulate")) or \
             sorted(probe_rows) != sorted(probes.KERNELS) or \
             any(v["launches"] <= 0 for v in probe_rows.values()):
         raise AssertionError("a kernel of the main path was never launched")

@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from .._build import build_shared, nvcc
+from ..profile import kernel_launches
 from ..intersect import RayHit, T_FAR, leaf_test
 from .traverse import sort_order
 
@@ -48,8 +49,8 @@ __all__ = ["Tables", "WideTables", "pack_tables", "pack_tables_wide", "pack_tabl
            "pack_tables_auto", "paged_resident", "wide_mode", "use_wide", "raycast",
            "raycast_plain", "raycast_cuda", "raycast4_plain", "raycast4_cuda",
            "traverse_packed", "count_decode", "leaf_real_counts", "load_kernel", "load_kernel4",
-           "occupancy", "fits_smem", "supported", "launches",
-           "launches4", "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "SMEM_NODE_BUDGET",
+           "occupancy", "fits_smem", "supported",
+           "STACK_CAP", "NODE_TABLE_BUDGET", "PAGED_SMEM_BUDGET", "SMEM_NODE_BUDGET",
            "PACKET"]
 
 # Per-thread stack entries, the reference's STACK_DEPTH. The ordered binary
@@ -100,10 +101,6 @@ MAX_BLOCK_SMEM = 227 << 10
 # read from device memory. The reference's 792 KB was the TPU's scalar
 # memory, which held its whole node table.
 SMEM_NODE_BUDGET = MAX_BLOCK_SMEM
-
-# Number of kernel launches made through raycast_cuda and raycast4_cuda.
-launches = 0
-launches4 = 0
 
 
 @dataclass
@@ -708,7 +705,6 @@ def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: 
     """Launch the CUDA kernel on the current stream. Every tensor must be
     contiguous and on the same CUDA device; ``start`` as for
     :func:`raycast_plain`. Returns (best_t, best_i)."""
-    global launches
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
         raise ValueError(f"unknown intersector {algo!r}")
@@ -728,7 +724,7 @@ def raycast_cuda(tables: Tables, o, d, t_max=None, any_hit: bool = False, algo: 
         _ALGOS[algo], int(any_hit), best_t.data_ptr(), best_i.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"bvh_traverse launch failed: cudaError {rc}")
-    launches += 1
+    kernel_launches["binary"] += 1
     return best_t, best_i
 
 
@@ -741,7 +737,6 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
     from node ids it checked, so the launch reads nothing back to the host
     and can be captured in a CUDA graph. Returns (best_t, best_i), and
     with ``count`` also the (N, 3) i32 per-ray counters."""
-    global launches4
     _check_rays(o, d, t_max)
     if algo not in _ALGOS:
         raise ValueError(f"unknown intersector {algo!r}")
@@ -771,7 +766,7 @@ def raycast4_cuda(tables: WideTables, o, d, t_max=None, any_hit: bool = False,
         int(any_hit), best_t.data_ptr(), best_i.data_ptr(), _ptr(counts), stream)
     if rc != 0:
         raise RuntimeError(f"bvh4_traverse launch failed: cudaError {rc}")
-    launches4 += 1
+    kernel_launches["bvh4"] += 1
     return (best_t, best_i, counts) if count else (best_t, best_i)
 
 

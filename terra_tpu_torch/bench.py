@@ -109,12 +109,13 @@ def _device_keys() -> dict:
 def _emit(metric, value, unit, **extra):
     """One JSON line on stdout: ``bench.py``'s keys (``vs_baseline`` null),
     the card, and each traversal kernel's launches since the last line
-    (the counters are set to 0 after)."""
+    (the launch counter is cleared after)."""
+    counted = profile.kernel_launches
     line = {"metric": metric, "value": round(float(value), 3), "unit": unit,
             "vs_baseline": None, **_device_keys(),
-            "launches": {"bvh_traverse": pt.launches, "bvh4_traverse": pt.launches4}}
+            "launches": {"bvh_traverse": counted["binary"], "bvh4_traverse": counted["bvh4"]}}
     line.update(extra)
-    pt.launches = pt.launches4 = 0
+    counted.clear()
     print(json.dumps(line), flush=True)
 
 
@@ -298,11 +299,9 @@ def _check_hits(hit_k, hit_ref, what: str) -> None:
 
 def _gate_raycast(scene, o, d):
     """``pallas_traverse.raycast`` (the kernel on a CUDA scene) for a
-    gate: its launches are not the config's, so the counts are put back."""
-    n2, n4 = pt.launches, pt.launches4
-    hit = pt.raycast(scene, o, d)
-    pt.launches, pt.launches4 = n2, n4
-    return hit
+    gate: its launches are not the config's, so they are taken back."""
+    with profile.launches_taken_back():
+        return pt.raycast(scene, o, d)
 
 
 def _verify_compiled_kernel(scene, o, d, n_check: int = N_CHECK):
@@ -481,7 +480,7 @@ def main() -> None:
     key = rng.key_from_seed(0)
     failed = []
     for fn in CONFIGS:
-        pt.launches = pt.launches4 = 0
+        profile.kernel_launches.clear()
         try:
             fn(device, key)
         except Exception as e:  # keep later configs alive; record the failure

@@ -9,34 +9,33 @@ options, samples, rows, device) into ``torch.cuda.CUDAGraph`` objects and
 replayed with new inputs copied into a static buffer: the host dispatches
 a few graph launches instead of every elementwise op of every loop trip.
 
-A unit's body (``render._BandBody``) has three stages, each captured as
-one graph in a shared memory pool: ``start`` (lane ids, first rays, the
+Every unit is a :class:`StagedUnit`: a body's named stages, captured one
+graph each in one memory pool, and replayed by name. A render unit's body
+(``render._BandBody``) has three: ``start`` (lane ids, first rays, the
 loop carry), ``step`` (a block of persistent-lane loop trips, updating the
 carry in place and writing the all-finished flag) and ``finish`` (the
-radiance sum). :func:`drive` runs them: ``step`` until the flag is set or
-the trip bound is reached, reading the flag once per block.
+radiance sum); its :class:`Loop` says how :func:`drive` runs them:
+``step`` until the flag is set or the block bound is reached, reading the
+flag once per block. Training units (:class:`TrainUnit`) serve ``optim``'s
+steps: the forward (autograd recorded inside the capture), the backward
+and the optimiser's update, replayed in capture order; the sharded steps'
+all-reduces run between replays. The compacted traversal
+(``accel.compact``) runs its dispatch-bound stages (phase 1 with its first
+two rounds, and tail rounds padded to their buckets) as units in one pool
+over one run's static buffers, reading the active count back between
+replays; ``profile.stage_breakdown`` times its stages as units. On the CPU
+a body is its own unit: it runs eagerly, ``replay`` being ``run``.
 
 Before capture the body runs once eagerly on a side stream under
-``torch.cuda.set_sync_debug_mode("error")``, which builds the traversal
-kernels and refuses any op that synchronises with the host. A failed
-capture or replay raises, naming the stage; nothing falls back to eager
-rendering. ``render.render_rows`` stays the eager body, by name.
+``torch.cuda.set_sync_debug_mode("error")``, which builds the kernels and
+refuses any op that synchronises with the host. A failed warm-up or
+capture raises, naming the stage; nothing falls back to eager dispatch.
+``render.render_rows`` stays the eager render body, by name.
 
-Staged units (:class:`StagedUnit`) capture a body's named stages, one
-graph each in one pool. Training units (:class:`TrainUnit`) serve
-``optim``'s steps this way: the forward (autograd recorded inside the
-capture), the backward and the optimiser's update, replayed in capture
-order; the sharded steps' all-reduces run between replays. The compacted
-traversal (``accel.compact``) runs its dispatch-bound stages (phase 1 with
-its first two rounds, and tail rounds padded to their buckets) as staged
-units in one pool over one run's static buffers, reading the active count
-back between replays; ``profile.stage_breakdown`` times its stages as
-staged units.
-
-The traversal, threefry and row-accumulate wrappers count launches when
-they enqueue a kernel, so a replay would count nothing. A unit records
-each graph's captured launches, takes them back out of the counters (the
-capture launched nothing), and adds them again on every replay.
+The kernel wrappers count their launches in ``profile.kernel_launches``
+as they enqueue them, so a replay would count nothing. A unit records what
+each stage's capture added to the counter, takes it back out (the capture
+launched nothing), and adds it again on every replay; it names no kernel.
 
 Spans (``profile``): a unit's construction is ``terra.unit.capture``, its
 eager warm-up nested in it as ``terra.unit.warmup``; each graph replay is
@@ -56,15 +55,13 @@ import contextlib
 import dataclasses
 import weakref
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
-from .accel import pallas_traverse
-from .ops import rng, row_accumulate
-from .profile import profiler
+from .profile import kernel_launches, launches_taken_back, profiler
 
-__all__ = ["Unit", "StagedUnit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit",
+__all__ = ["Loop", "StagedUnit", "TrainUnit", "WeakCache", "fingerprint", "drive", "unit",
            "train_unit", "staged_unit", "compact_run", "units", "clear", "CONTEXTS", "MAX_UNITS",
            "MAX_TRAIN_UNITS", "MAX_COMPACT_RUNS"]
 
@@ -178,33 +175,6 @@ def _sync_debug_error():
         torch.cuda.set_sync_debug_mode(old)
 
 
-@contextlib.contextmanager
-def _taken_back():
-    """Yields a list that receives the (binary, bvh4, threefry,
-    row_accumulate) launches the block enqueued, and restores the counters:
-    a capture launches nothing."""
-    counts = []
-    l2, l4, lr, la = (pallas_traverse.launches, pallas_traverse.launches4, rng.launches,
-                      row_accumulate.launches)
-    try:
-        yield counts
-    finally:
-        counts[:] = [pallas_traverse.launches - l2, pallas_traverse.launches4 - l4,
-                     rng.launches - lr, row_accumulate.launches - la]
-        pallas_traverse.launches, pallas_traverse.launches4, rng.launches = l2, l4, lr
-        row_accumulate.launches = la
-
-
-def _add_back(counts) -> None:
-    """A replay's launches: the (binary, bvh4, threefry, row_accumulate)
-    counts its capture recorded."""
-    n2, n4, nr, na = counts
-    pallas_traverse.launches += n2
-    pallas_traverse.launches4 += n4
-    rng.launches += nr
-    row_accumulate.launches += na
-
-
 _REPLAY_SPANS: dict = {}
 
 
@@ -217,79 +187,14 @@ def _replay_span(stage: str):
     return profiler.hot(name)
 
 
-class Unit:
-    """One launch unit captured from ``body`` (see ``render._BandBody``):
-    the graphs of its stages, its static input buffer ``inputs`` (int64:
-    key words, sample offset, first row), its all-finished ``flag`` and its
-    static output. ``start``, ``step`` and ``finish`` replay the stages,
-    so :func:`drive` runs a unit as it runs an eager body."""
+class Loop(NamedTuple):
+    """How :func:`drive` runs a body's ``step`` stage: at most ``steps``
+    blocks of ``trips_per_step`` loop trips, stopping once the 0-d bool
+    device tensor ``flag`` is set (every lane finished)."""
 
-    STAGES = ("start", "step", "finish")
-
-    def __init__(self, body, device):
-        device = torch.device(device)
-        self.label = body.label
-        self.inputs, self.flag = body.inputs, body.flag
-        self.steps, self.trips_per_step = body.steps, body.trips_per_step
-        stages = [s for s in self.STAGES if s != "step" or body.steps]
-        with profiler.span("terra.unit.capture") as whole:
-            with profiler.span("terra.unit.warmup") as warm:
-                side = torch.cuda.Stream(device)
-                side.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(side), _sync_debug_error():
-                    for s in stages:
-                        getattr(body, s)()
-                torch.cuda.current_stream(device).wait_stream(side)
-                torch.cuda.synchronize(device)
-            # each capture empties the allocator's cache first; empty it
-            # here too, so the reserved bytes the captures add are the pool's
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(device)
-            pool = torch.cuda.graph_pool_handle()
-            self._graphs = {}
-            for s in stages:
-                graph = torch.cuda.CUDAGraph()
-                try:
-                    with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
-                        out = getattr(body, s)()
-                except RuntimeError as e:
-                    raise RuntimeError(
-                        f"capturing stage {s!r} of {self.label} failed: {e}") from e
-                self._graphs[s] = (graph, tuple(counts))
-            self.out = out  # the finish stage's static output
-            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.warmup_s, self.capture_s = warm.seconds, whole.seconds - warm.seconds
-        # what the graphs read besides the scene's and camera's own
-        # tensors (which their owners keep alive while the unit lives)
-        self._keep = (body.ctx, body.lanes, body.state)
-        self.replays = 0
-
-    def _replay(self, stage: str):
-        graph, counts = self._graphs[stage]
-        with _replay_span(stage):
-            graph.replay()
-        _add_back(counts)
-
-    def start(self):
-        self.replays += 1
-        self._replay("start")
-
-    def step(self):
-        self._replay("step")
-
-    def finish(self):
-        self._replay("finish")
-        return self.out
-
-    def describe(self) -> dict:
-        """The unit's numbers; ``launches`` maps each stage to the (binary,
-        bvh4, threefry, row_accumulate) kernel launches one replay of it
-        makes; ``warmup_s`` is its ``terra.unit.warmup`` span, ``capture_s``
-        the rest of its ``terra.unit.capture`` span."""
-        return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
-                    pool_bytes=self.pool_bytes, replays=self.replays,
-                    launches={s: c for s, (_, c) in self._graphs.items()},
-                    trips_per_step=self.trips_per_step, max_steps=self.steps)
+    flag: torch.Tensor
+    steps: int
+    trips_per_step: int
 
 
 class StagedUnit:
@@ -306,11 +211,15 @@ class StagedUnit:
     ``body.restore(saved)`` after it put that state back. A stage that
     fails to warm up or to capture raises, naming it; nothing falls back
     to eager dispatch. Host reads and collectives run between replays,
-    never inside a graph."""
+    never inside a graph. The unit copies the body's label, ``inputs``
+    buffer, stages and :class:`Loop` (``body.loop``, if it has one), and
+    holds ``body.keep``, never the body: a render body holds the scene and
+    the camera, which the unit cache holds only weakly."""
 
     def __init__(self, body, device, pool=None):
         device = torch.device(device)
         self.label, self.inputs, self.stages = body.label, body.inputs, tuple(body.stages)
+        self.loop = getattr(body, "loop", None)
         with profiler.span("terra.unit.capture") as whole:
             with profiler.span("terra.unit.warmup") as warm:
                 saved = body.save()
@@ -328,23 +237,25 @@ class StagedUnit:
                     torch.cuda.current_stream(device).wait_stream(side)
                     body.restore(saved)
                     torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()  # as in Unit: the reserved bytes added are the pool's
+            # each capture empties the allocator's cache first; empty it
+            # here too, so the reserved bytes the captures add are the pool's
+            torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
             pool = torch.cuda.graph_pool_handle() if pool is None else pool
             self._graphs = {}
             for s in self.stages:
                 graph = torch.cuda.CUDAGraph()
                 try:
-                    with _taken_back() as counts, torch.cuda.graph(graph, pool=pool):
+                    with launches_taken_back() as counts, torch.cuda.graph(graph, pool=pool):
                         out = body.run(s)
                 except RuntimeError as e:
                     raise RuntimeError(
                         f"capturing stage {s!r} of {self.label} failed: {e}") from e
-                self._graphs[s] = (graph, tuple(counts), out)
+                self._graphs[s] = (graph, counts, out)
             self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.warmup_s, self.capture_s = warm.seconds, whole.seconds - warm.seconds
         # what the graphs read that no owner keeps alive (static buffers,
-        # tables); the body itself holds the owners
+        # tables, a render's context and loop carry)
         self._keep = body.keep
         self.replays = 0
 
@@ -354,18 +265,23 @@ class StagedUnit:
         graph, counts, out = self._graphs[stage]
         with _replay_span(stage):
             graph.replay()
-        _add_back(counts)
+        kernel_launches.update(counts)
         if stage == self.stages[0]:
             self.replays += 1
         return out
 
     def describe(self) -> dict:
-        """The unit's numbers; ``launches`` maps each stage to the (binary,
-        bvh4, threefry, row_accumulate) kernel launches one replay of it
-        makes; ``warmup_s`` and ``capture_s`` as for :meth:`Unit.describe`."""
-        return dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
-                    pool_bytes=self.pool_bytes, replays=self.replays,
-                    launches={s: c for s, (_, c, _) in self._graphs.items()})
+        """The unit's numbers: ``launches`` maps each stage to the kernel
+        launches one replay of it makes, ``{kernel: n}``; ``warmup_s`` is its
+        ``terra.unit.warmup`` span, ``capture_s`` the rest of its
+        ``terra.unit.capture`` span; a unit with a :class:`Loop` adds its
+        ``trips_per_step`` and block bound ``max_steps``."""
+        out = dict(label=self.label, warmup_s=self.warmup_s, capture_s=self.capture_s,
+                   pool_bytes=self.pool_bytes, replays=self.replays,
+                   launches={s: dict(c) for s, (_, c, _) in self._graphs.items()})
+        if self.loop is not None:
+            out.update(trips_per_step=self.loop.trips_per_step, max_steps=self.loop.steps)
+        return out
 
 
 class TrainUnit(StagedUnit):
@@ -382,21 +298,23 @@ class TrainUnit(StagedUnit):
         self.cot = body.cot
 
 
-def drive(body) -> tuple:
-    """Run a unit or an eager body: ``start``, then ``step`` until the
-    all-finished flag is set (read once per block) or ``steps`` blocks ran,
-    then ``finish``. Returns (output, loop trips run)."""
-    body.start()
+def drive(unit) -> tuple:
+    """Run a render unit, or its body eagerly, by its :class:`Loop`:
+    ``start``, then ``step`` until the all-finished flag is set (read once
+    per block) or ``steps`` blocks ran, then ``finish``. Returns (output,
+    loop trips run)."""
+    flag, steps, trips_per_step = unit.loop
+    unit.replay("start")
     n = 0
-    while n < body.steps:
-        body.step()
+    while n < steps:
+        unit.replay("step")
         n += 1
-        if n < body.steps:
+        if n < steps:
             with profiler.hot("terra.unit.flag_read"):
-                done = bool(body.flag)
+                done = bool(flag)
             if done:
                 break
-    return body.finish(), n * body.trips_per_step
+    return unit.replay("finish"), n * trips_per_step
 
 
 _UNITS = WeakCache(MAX_UNITS)
@@ -405,13 +323,13 @@ _COMPACT_RUNS = WeakCache(MAX_COMPACT_RUNS)
 CONTEXTS = WeakCache(8)
 
 
-def unit(owners: tuple, key, make_body: Callable) -> Unit:
-    """The captured unit of ``key`` for ``owners`` (scene, camera),
+def unit(owners: tuple, key, make_body: Callable) -> StagedUnit:
+    """The captured render unit of ``key`` for ``owners`` (scene, camera),
     capturing it from ``make_body()`` on a miss. ``key`` holds everything
     else the body bakes in (options, samples, rows, device)."""
     def capture():
         body = make_body()
-        return Unit(body, body.inputs.device)
+        return StagedUnit(body, body.inputs.device)
 
     return _UNITS.get(owners, key, capture)
 

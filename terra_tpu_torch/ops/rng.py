@@ -6,7 +6,8 @@ exactly the random decisions of the JAX renderer and of its NumPy mirror.
 
 :func:`path_uniform_bundle`, :func:`path_uniform2` and :func:`path_uniform`
 launch the hand-written kernel ``csrc/threefry.cu`` for lanes on a CUDA
-device (one launch per call, counted in :data:`launches`) and take their
+device (one launch per call, counted as ``"threefry"`` in
+``profile.kernel_launches``) and take their
 plain versions (``*_plain``) for lanes on the CPU. There is no fallback:
 a CUDA call the kernel does not take raises. The kernel runs the cipher
 on uint32 words in registers; the plain versions run it as int64 PyTorch
@@ -29,12 +30,13 @@ import os
 import torch
 
 from .._build import build_shared, nvcc
+from ..profile import kernel_launches
 
 __all__ = [
     "threefry2x32", "uniform_from_bits", "PathStreams", "path_uniform",
     "path_uniform2", "path_uniform_bundle", "path_uniform_plain", "path_uniform2_plain",
     "path_uniform_bundle_plain", "key_from_seed", "radical_inverse", "load_kernel",
-    "kernel_path", "launches", "MAX_BASES",
+    "kernel_path", "MAX_BASES",
 ]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -47,8 +49,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Stream pairs one launch draws (the kernel's unrolled ciphers a lane).
 MAX_BASES = 8
-# Number of kernel launches made through the CUDA wrappers.
-launches = 0
 
 
 def _u32(x, like=None):
@@ -231,7 +231,6 @@ def _uniforms_cuda(key, pixel_idx, sample_idx, bounce, bases) -> torch.Tensor:
     *pixel_idx.shape) f32 uniforms, rows 2j and 2j + 1 the two words of
     the cipher at counter stream ``bases[j]``. Reads nothing back to the
     host and allocates only its output, so a CUDA graph can capture it."""
-    global launches
     if pixel_idx.dtype != torch.int64:
         raise ValueError(f"the threefry kernel takes int64 pixel ids; got {pixel_idx.dtype}")
     if not 1 <= len(bases) <= MAX_BASES or any(not 0 <= b < 64 for b in bases):
@@ -251,7 +250,7 @@ def _uniforms_cuda(key, pixel_idx, sample_idx, bounce, bases) -> torch.Tensor:
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"threefry launch failed: cudaError {rc}")
-    launches += 1
+    kernel_launches["threefry"] += 1
     return out
 
 

@@ -23,7 +23,7 @@ atomics: the bits repeat from call to call. A row no lane names reads
 
 For a CUDA tensor the levels are the hand-written kernel
 ``csrc/row_accumulate.cu`` (built at the first CUDA backward, one launch a
-level, counted in :data:`launches`); for a CPU tensor they are
+level, counted as ``"row_accumulate"`` in ``profile.kernel_launches``); for a CPU tensor they are
 :func:`row_accumulate_plain`, the same levels as PyTorch ops, which gives
 the kernel's words. A CUDA call the kernel does not take raises; there is
 no fallback. The CUDA wrapper allocates its output and scratch with
@@ -43,10 +43,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .._build import build_shared, nvcc
+from ..profile import kernel_launches
 from .rng import NVCC_FLAGS
 
 __all__ = ["gather", "RowGather", "row_accumulate", "row_accumulate_plain", "level_sizes",
-           "load_kernel", "kernel_path", "launches", "TILE"]
+           "load_kernel", "kernel_path", "TILE"]
 
 KERNEL_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
                           "row_accumulate.cu")
@@ -55,8 +56,6 @@ TILE = 256
 _STEPS = TILE.bit_length() - 1
 # Key of a position past the ids and of a slot that carries nothing on.
 _NONE = -1
-# Number of kernel launches (one a level) made through the CUDA wrapper.
-launches = 0
 
 
 def gather(table, idx):
@@ -184,7 +183,6 @@ def load_kernel() -> ctypes.CDLL:
 def _row_accumulate_cuda(grad, idx, rows: int):
     """The levels as kernel launches on the current stream. Ids outside
     ``[0, rows)`` are not checked; the kernel writes no row for them."""
-    global launches
     dev = grad.device
     if not grad.is_cuda or grad.dtype != torch.float32:
         raise ValueError(f"the row-accumulate kernel takes a float32 CUDA gradient; got "
@@ -213,7 +211,7 @@ def _row_accumulate_cuda(grad, idx, rows: int):
             None if nv is None else nv.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"row_accumulate launch failed: cudaError {rc}")
-        launches += 1
+        kernel_launches["row_accumulate"] += 1
         keys, perm, vals = nk, None, nv
     return out.reshape(shape)
 

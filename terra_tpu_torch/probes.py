@@ -26,11 +26,12 @@ Each of the eleven probe bodies has a wrapper here (:data:`BODIES` names
 them) and a plain PyTorch version of the same function. A wrapper takes the
 plain version for a CPU tensor; for a CUDA tensor it launches the kernel
 on the current stream, raises if the launch fails, and never falls back.
-:data:`launches` counts kernel launches. Every value involved is an
-integer below 2^24 (or 1e9 plus one), exact in f32, so kernel and plain
-version agree word for word, on the reference's inputs (:func:`make_input`),
-on :data:`SEEDS` seeded random ones (:func:`seeded_input`) and, for the
-loop probe, on its trip-count edges (:func:`edge_inputs`).
+:func:`run` counts its launches as ``"probe"`` in ``profile.kernel_launches``.
+Every value involved is an integer below 2^24 (or 1e9 plus one), exact in
+f32, so kernel and plain version agree word for word, on the reference's
+inputs (:func:`make_input`), on :data:`SEEDS` seeded random ones
+(:func:`seeded_input`) and, for the loop probe, on its trip-count edges
+(:func:`edge_inputs`).
 :func:`run_floor` launches an empty kernel of a probe's launch shape, the
 floor its device time is read against; :func:`redesign_rank` orders
 kernels by what a redesign could save on the path that launched them;
@@ -51,10 +52,11 @@ import numpy as np
 import torch
 
 from ._build import build_shared, nvcc
+from .profile import kernel_launches
 
 __all__ = ["BODIES", "KERNELS", "Body", "run", "run_plain", "run_floor", "launch", "make_input",
            "seeded_input", "edge_inputs", "load_kernel", "load_library", "kernel_path",
-           "redesign_rank", "sass", "parse_sass", "launches", "ROWS", "W", "SEEDS", "LOOP",
+           "redesign_rank", "sass", "parse_sass", "ROWS", "W", "SEEDS", "LOOP",
            "LOOP_EDGES"]
 
 ROWS, W = 8, 128  # the (8, 128) output block of every probe
@@ -64,9 +66,6 @@ LOOP_EDGES = (-1, 0, 1, 31, 32, 33, 127, 128, 129, 130)  # trip counts of edge_i
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "pattern_probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-# Number of probe-kernel launches made through the wrappers.
-launches = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -332,8 +331,7 @@ def _launch(lib: ctypes.CDLL, fn: str, arg, x: torch.Tensor) -> torch.Tensor:
 
 def launch(name: str, x: torch.Tensor, lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
     """Body ``name``'s kernel from ``lib`` (default: :func:`load_kernel`) on
-    the CUDA tensor ``x``, not counted in :data:`launches` (for A/Bs of
-    other builds)."""
+    the CUDA tensor ``x``, not counted (for A/Bs of other builds)."""
     body = BODIES[name]
     _check(body, x)
     if x.device.type != "cuda":
@@ -349,13 +347,12 @@ def run(name: str, x: torch.Tensor) -> torch.Tensor:
     """Body ``name`` of :data:`BODIES` on ``x``: the plain version for a
     CPU tensor, the kernel for a CUDA tensor. Returns the (8, 128) output
     in ``x``'s dtype."""
-    global launches
     body = BODIES[name]
     _check(body, x)
     if x.device.type == "cpu":
         return body.plain(x)
     out = launch(name, x)
-    launches += 1
+    kernel_launches["probe"] += 1
     return out
 
 
@@ -364,7 +361,7 @@ def run_floor(x: torch.Tensor, threads: int = 256,
     """The empty kernel (one block of ``threads``, a probe kernel's block
     size in :data:`KERNELS`; no work) launched on ``x``'s card as
     :func:`run` launches a probe, output allocated and left unwritten: the
-    launch floor. Not counted in :data:`launches`."""
+    launch floor. Not counted."""
     if threads not in {t for _, _, t in KERNELS.values()}:
         raise ValueError(f"the launch floor takes a probe kernel's block size, got {threads}")
     if x.device.type != "cuda":

@@ -14,12 +14,15 @@ from CUDA events on the current stream, and ``device_trace`` records a
 ``torch.profiler`` trace (CPU and CUDA activities) where the reference
 used ``jax.profiler``. ``device_ms`` times a CUDA call by events (behind a
 sleep backlog where the call is shorter than its host cost) and ``card``
-names the card and its power limit, to print beside any time. Where the reference jits each stage of
-``stage_breakdown`` before timing it, the port captures it as a CUDA graph
-(``graphs.staged_unit``) and times replays.
+names the card and its power limit, to print beside any time.
+``kernel_launches`` counts the hand-written kernels' launches by kernel
+name; each wrapper adds to it as it enqueues one. Where the reference
+jits each stage of ``stage_breakdown`` before timing it, the port
+captures it as a CUDA graph (``graphs.staged_unit``) and times replays.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import subprocess
@@ -31,7 +34,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["Stats", "Profiler", "ray_count", "profiler", "tracing", "device_trace",
-           "stage_breakdown", "device_ms", "card"]
+           "stage_breakdown", "device_ms", "card", "kernel_launches", "launches_taken_back"]
 
 # the spans' clock (tests patch it to show that an off span reads none)
 _clock = time.perf_counter
@@ -175,6 +178,28 @@ class Profiler:
 
 
 profiler = Profiler()
+
+# Kernel launches by kernel name: each hand-written kernel's wrapper adds 1
+# under its name as it enqueues a launch ("binary", "bvh4", "threefry",
+# "row_accumulate", "probe"), and a graph replay adds what its capture
+# counted (``graphs``). Readers clear it or copy it; nobody rebinds it.
+kernel_launches: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def launches_taken_back():
+    """Yields a ``Counter`` that receives the kernel launches counted inside
+    the block, and takes them back out of :data:`kernel_launches` after it:
+    a graph capture enqueues launches that run only when it is replayed,
+    and a gate's launches are not the main path's."""
+    before = kernel_launches.copy()
+    counted: collections.Counter = collections.Counter()
+    try:
+        yield counted
+    finally:
+        counted.update(kernel_launches - before)
+        kernel_launches.clear()
+        kernel_launches.update(before)
 
 
 @contextlib.contextmanager

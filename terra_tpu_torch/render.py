@@ -462,14 +462,17 @@ class _BandBody:
                fixed-depth path, with ``samples_per_lane`` 1: the whole
                trace);
       step   — ``trips_per_step`` trips of the persistent loop, the carry
-               updated in place, ``flag`` set when every lane finished;
+               updated in place, ``flag`` set when every lane finished
+               (persistent path only);
       finish — the (rows, W, 3) radiance sum.
 
-    ``steps`` blocks reach the loop's bound ``quota * (bounces + 1)``:
-    blocks of ``bounces + 1`` trips, one path's longest, so at most
-    ``bounces`` trips run after the last lane finished (they change no
-    output word). ``graphs.Unit`` captures the stages; ``graphs.drive``
-    runs them, or runs this body eagerly on the CPU."""
+    ``loop`` (a ``graphs.Loop``): ``steps`` blocks reach the loop's bound
+    ``quota * (bounces + 1)``: blocks of ``bounces + 1`` trips, one path's
+    longest, so at most ``bounces`` trips run after the last lane finished
+    (they change no output word). ``graphs.unit`` captures the stages as a
+    ``graphs.StagedUnit``; ``graphs.drive`` replays them, or runs this body
+    eagerly on the CPU (``replay`` is ``run``). ``start`` rewrites the
+    whole carry, so the warm-up leaves nothing to restore."""
 
     def __init__(self, scene: Scene, cam: Camera, opts: RenderOptions, spp_chunk: int,
                  rows: int):
@@ -481,11 +484,29 @@ class _BandBody:
         self.ctx = _context(scene, opts)
         self.quota = _quota(opts, spp_chunk)
         self.inputs = torch.zeros((4,), dtype=torch.int64, device=dev)
-        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
         persistent = self.quota > 1
-        self.trips_per_step = opts.bounces + 1 if persistent else 0
-        self.steps = self.quota if persistent else 0
+        self.loop = graphs.Loop(torch.zeros((), dtype=torch.bool, device=dev),
+                                self.quota if persistent else 0,
+                                opts.bounces + 1 if persistent else 0)
+        self.stages = ("start", "step", "finish") if persistent else ("start", "finish")
         self.lanes, self.state = None, {}
+
+    @property
+    def keep(self) -> tuple:
+        """What the captured stages read besides the scene's and camera's
+        own tensors (which their owners keep alive while the unit lives)."""
+        return self.ctx, self.lanes, self.state
+
+    def run(self, stage: str):
+        return getattr(self, stage)()
+
+    replay = run
+
+    def save(self):
+        return None
+
+    def restore(self, saved) -> None:
+        pass
 
     def start(self):
         opts, dev = self.opts, self.inputs.device
@@ -507,12 +528,12 @@ class _BandBody:
 
     def step(self):
         st = self.state
-        for _ in range(self.trips_per_step):
+        for _ in range(self.loop.trips_per_step):
             st = _persistent_trip(self.scene, self.ctx, self.opts, self.cam, self.inputs[0:2],
                                   self.lanes, self.quota, st)
         for k, v in st.items():
             self.state[k].copy_(v)
-        self.flag.copy_(self.state["finished"].all())
+        self.loop.flag.copy_(self.state["finished"].all())
 
     def finish(self):
         lanes_pp = self.spp // self.quota

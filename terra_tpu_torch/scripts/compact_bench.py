@@ -74,11 +74,11 @@ def _turns(fns: dict, dev) -> dict:
 def _launches4(fn) -> int:
     """BVH4 kernel launches one ``fn()`` makes (a replay adds what its
     capture recorded)."""
-    from terra_tpu_torch.accel import pallas_traverse as pt
+    from terra_tpu_torch.profile import kernel_launches
 
-    before = pt.launches4
+    before = kernel_launches["bvh4"]
     fn()
-    return pt.launches4 - before
+    return kernel_launches["bvh4"] - before
 
 
 def _words(a, b) -> int:

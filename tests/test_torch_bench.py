@@ -39,7 +39,7 @@ from terra_tpu.ops import math3 as j_math3, rng as jrng
 from terra_tpu.surface import build_shade_tables as j_build_shade_tables
 from terra_tpu.surface import surface_init as j_surface_init
 from terra_tpu_torch import bench as port
-from terra_tpu_torch import intersect
+from terra_tpu_torch import intersect, profile
 from terra_tpu_torch.accel import pallas_traverse as tpt
 from terra_tpu_torch.ops import rng
 
@@ -287,7 +287,7 @@ def test_metrics_and_units_are_bench_pys():
 
 
 def test_emit_line(capsys):
-    tpt.launches, tpt.launches4 = 2, 5
+    profile.kernel_launches.update(binary=2, bvh4=5)
     with mock.patch.object(port, "_device_keys", lambda: {"card": "X, 1 W",
                                                           "device_count": 1}):
         port._emit("courtyard_bvh_mrays", 12.34567, "Mrays/s", tris=7)
@@ -295,7 +295,7 @@ def test_emit_line(capsys):
     assert line == {"metric": "courtyard_bvh_mrays", "value": 12.346, "unit": "Mrays/s",
                     "vs_baseline": None, "card": "X, 1 W", "device_count": 1,
                     "launches": {"bvh_traverse": 2, "bvh4_traverse": 5}, "tris": 7}
-    assert tpt.launches == tpt.launches4 == 0
+    assert profile.kernel_launches == {}
 
 
 def _flip(real, what):
@@ -334,16 +334,16 @@ def test_gates_leave_the_launch_counts(small_courtyard, gate):
 
     def counted(*a, **kw):  # the wrapper's count, as on a CUDA scene
         calls.append(1)
-        tpt.launches4 += 1
+        profile.kernel_launches["bvh4"] += 1
         return real(*a, **kw)
 
-    tpt.launches, tpt.launches4 = 3, 4
+    profile.kernel_launches.update(binary=3, bvh4=4)
     try:
         with mock.patch.object(tpt, "raycast", counted):
             getattr(port, gate)(c["pscene"], c["o"], c["d"], 256)
-        assert calls and (tpt.launches, tpt.launches4) == (3, 4)
+        assert calls and profile.kernel_launches == {"binary": 3, "bvh4": 4}
     finally:
-        tpt.launches = tpt.launches4 = 0
+        profile.kernel_launches.clear()
 
 
 def test_main_without_a_card_exits_naming_it():

@@ -16,10 +16,12 @@ import torch
 
 from terra_tpu.accel import compact as jc
 from terra_tpu.accel import pallas_traverse as jpt
+from terra_tpu_torch import profile
 from terra_tpu_torch.accel import compact as tc
 from terra_tpu_torch.accel import pallas_traverse as tpt
 from terra_tpu_torch.intersect import T_FAR
 from terra_tpu_torch.scripts import compact_bench
+from tests.test_torch_bsdf import torch_one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_traverse import _rays
 from tests.test_torch_wide import _assert_hits, _twins
 
@@ -309,10 +311,10 @@ def _bad(case):
                                   "start_dtype", "start_device"])
 def test_compact_and_start_links_reject_bad_inputs(case):
     fn = _bad(case)
-    before = tpt.launches4
+    before = profile.kernel_launches.copy()
     with pytest.raises(ValueError):
         fn()
-    assert tpt.launches4 == before
+    assert profile.kernel_launches == before
 
 
 def test_compact_bench_runs_on_plain_walks():

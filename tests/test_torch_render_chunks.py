@@ -11,6 +11,7 @@ and the order in which ``render`` calls the units.
 """
 import gc
 import importlib
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +25,8 @@ from terra_tpu.render import render_band as j_render_band
 from terra_tpu.render import render_chunk as j_render_chunk
 from terra_tpu.render import render_chunks as j_render_chunks
 from terra_tpu_torch import camera as camera_mod
-from terra_tpu_torch import graphs, integrators, intersect
-from terra_tpu_torch.accel import pallas_traverse as tpt
-from terra_tpu_torch.ops import math3, rng, row_accumulate
+from terra_tpu_torch import graphs, integrators, intersect, profile
+from terra_tpu_torch.ops import math3, rng
 from tests.test_golden import _assert_twin_match
 
 # ``ttt.render`` is the function; the module holds the units and the body
@@ -172,13 +172,14 @@ def test_blocked_loop_to_bound_matches_early_break():
     render_mod.trips = 0
     eager = render_mod.render_rows(scene, cam, opts, key, 0, SPP, 0, 16)
     body = render_mod._BandBody(scene, cam, opts, SPP, 16)
-    assert render_mod.trips < body.steps * body.trips_per_step  # it did stop early
+    flag, steps, trips_per_step = body.loop
+    assert render_mod.trips < steps * trips_per_step  # it did stop early
     render_mod._set_inputs(body.inputs, torch.tensor(key), 0, 0)
-    body.start()
-    for _ in range(body.steps):
-        body.step()
-    assert bool(body.flag)
-    assert torch.equal(body.finish(), eager)
+    body.run("start")
+    for _ in range(steps):
+        body.run("step")
+    assert bool(flag)
+    assert torch.equal(body.run("finish"), eager)
 
 
 def _old_generate_rays(camera, width, height, px, py, jitter, r1, r2):
@@ -311,35 +312,69 @@ class _StubGraph:
         self.replays += 1
 
 
-def test_replay_adds_captured_launches(monkeypatch):
-    """A replay adds the launches its capture recorded; the capture's own
-    enqueues are taken back out of the counters."""
-    monkeypatch.setattr(tpt, "launches", 5)
-    monkeypatch.setattr(tpt, "launches4", 7)
-    monkeypatch.setattr(rng, "launches", 11)
-    monkeypatch.setattr(row_accumulate, "launches", 13)
-    with graphs._taken_back() as counts:
-        tpt.launches4 += 6  # as a capture's wrappers would count
-        rng.launches += 3
-        row_accumulate.launches += 2
-    assert counts == [0, 6, 3, 2]
-    assert (tpt.launches, tpt.launches4, rng.launches, row_accumulate.launches) == (5, 7, 11, 13)
+@pytest.fixture
+def counter():
+    """``profile.kernel_launches``, put back as it was after the test."""
+    with profile.launches_taken_back():
+        yield profile.kernel_launches
 
-    unit = object.__new__(graphs.Unit)
-    stubs = {s: _StubGraph() for s in graphs.Unit.STAGES}
-    unit._graphs = {"start": (stubs["start"], (0, 0, 1, 0)),
-                    "step": (stubs["step"], (1, 6, 6, 0)), "finish": (stubs["finish"], (0, 0, 0, 2))}
-    unit.flag = torch.tensor(False)
-    unit.steps, unit.trips_per_step, unit.replays = 4, 3, 0
-    unit.out = torch.zeros(2)
-    out, trips = graphs.drive(unit)  # the flag never sets: 4 blocks
-    assert out is unit.out and trips == 12
-    assert [stubs[s].replays for s in graphs.Unit.STAGES] == [1, 4, 1]
-    assert (tpt.launches, tpt.launches4, rng.launches) == (5 + 4, 7 + 24, 11 + 1 + 24)
-    assert row_accumulate.launches == 13 + 2
-    unit.flag = torch.tensor(True)  # every lane finished after one block
-    assert graphs.drive(unit)[1] == 3
-    assert stubs["step"].replays == 5 and unit.replays == 2
+
+def _stub_unit(cls, stages, counts, loop=None):
+    """A unit of ``cls`` whose stages replay stub graphs that record the
+    launches ``counts[stage]``."""
+    unit = object.__new__(cls)
+    unit.stages, unit.loop, unit.replays = stages, loop, 0
+    unit.label, unit.warmup_s, unit.capture_s, unit.pool_bytes = "stub", 0, 0, 0
+    unit._graphs = {s: (_StubGraph(), counts.get(s, Counter()), torch.zeros(1)) for s in stages}
+    return unit
+
+
+@pytest.mark.parametrize("kind", ["render", "train"])
+def test_replay_adds_captured_launches(kind, counter):
+    """A capture's launches are taken back out of the one counter, and a
+    replay adds what its stage's capture recorded, under whatever kernel
+    names the wrappers counted (``graphs`` knows none of them). The render
+    unit runs through ``drive`` by its loop; the training unit replays its
+    stages in order, each returning its static output. The replay count
+    moves with the first stage."""
+    counter.update(binary=5, bvh4=7)
+    with profile.launches_taken_back() as captured:
+        counter["bvh4"] += 6  # as a capture's wrappers would count
+        counter["sweep"] += 3  # a kernel graphs has never heard of
+    assert captured == Counter(bvh4=6, sweep=3) and counter == Counter(binary=5, bvh4=7)
+
+    if kind == "render":
+        stages = ("start", "step", "finish")
+        unit = _stub_unit(graphs.StagedUnit, stages,
+                          {"start": Counter(threefry=1), "step": captured},
+                          graphs.Loop(torch.tensor(False), 4, 3))
+        out, trips = graphs.drive(unit)  # the flag never sets: 4 blocks
+        assert out is unit._graphs["finish"][2] and trips == 12
+        assert [unit._graphs[s][0].replays for s in stages] == [1, 4, 1]
+        assert counter == Counter(binary=5, bvh4=7 + 4 * 6, sweep=4 * 3, threefry=1)
+        unit.loop = unit.loop._replace(flag=torch.tensor(True))  # done after one block
+        assert graphs.drive(unit)[1] == 3
+        assert unit._graphs["step"][0].replays == 5 and unit.replays == 2
+        info = unit.describe()
+        assert info["trips_per_step"] == 3 and info["max_steps"] == 4
+        assert info["launches"] == {"start": {"threefry": 1}, "step": {"bvh4": 6, "sweep": 3},
+                                    "finish": {}}
+    else:
+        stages = ("forward0", "forward1", "backward0", "backward1", "sum")
+        unit = _stub_unit(graphs.TrainUnit, stages,
+                          {"forward0": captured, "forward1": captured,
+                           "backward0": Counter(row_accumulate=7),
+                           "backward1": Counter(row_accumulate=7)})
+        for _ in range(2):
+            for s in stages:
+                assert unit.replay(s) is unit._graphs[s][2]
+        assert all(g.replays == 2 for g, _, _ in unit._graphs.values()) and unit.replays == 2
+        assert counter == Counter(binary=5, bvh4=7 + 2 * 2 * 6, sweep=2 * 2 * 3,
+                                  row_accumulate=2 * 2 * 7)
+        info = unit.describe()
+        assert "trips_per_step" not in info
+        assert info["launches"]["forward1"] == {"bvh4": 6, "sweep": 3}
+        assert info["launches"]["backward0"] == {"row_accumulate": 7}
 
 
 def test_render_calls_units_in_reference_order(monkeypatch):

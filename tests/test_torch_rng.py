@@ -6,6 +6,7 @@ import torch
 
 from terra_tpu.ops import rng as jrng
 from terra_tpu.testing import mirror
+from terra_tpu_torch import profile
 from terra_tpu_torch.ops import rng as trng
 
 
@@ -91,7 +92,7 @@ def test_cpu_lanes_never_load_the_kernel(monkeypatch):
     monkeypatch.setattr(trng, "load_kernel", refuse)
     monkeypatch.setattr(trng, "kernel_path", refuse)
     monkeypatch.setattr(trng, "build_shared", refuse)
-    before = trng.launches
+    before = profile.kernel_launches.copy()
     pixel = torch.arange(300, dtype=torch.int64)
     sample = pixel * 7
     for key in (trng.key_from_seed(5), torch.tensor(trng.key_from_seed(5))):
@@ -103,7 +104,7 @@ def test_cpu_lanes_never_load_the_kernel(monkeypatch):
                 assert torch.equal(trng.path_uniform(key, pixel, sample, bounce, s), ref[s])
             u1, u2 = trng.path_uniform2(key, pixel, sample, bounce, 0)
             assert torch.equal(u1, ref[0]) and torch.equal(u2, ref[1])
-    assert trng.launches == before
+    assert profile.kernel_launches == before
 
 
 _BAD_LAUNCHES = {
@@ -178,9 +179,9 @@ def test_kernel_bundle_matches_plain_chain(cuda, n, key_form, bounce_form):
     if key_form == "device":
         key = torch.tensor(key, dtype=torch.int64, device=cuda)
     bounce = lane_bounce if bounce_form == "lanes" else 2**26 + 3
-    before = trng.launches
+    before = profile.kernel_launches["threefry"]
     got = trng.path_uniform_bundle(key, pixel, sample, bounce, STREAMS)
-    assert trng.launches == before + (1 if n else 0)
+    assert profile.kernel_launches["threefry"] == before + (1 if n else 0)
     ref = trng.path_uniform_bundle_plain(key, pixel, sample, bounce, STREAMS)
     for s in STREAMS:
         assert got[s].device.type == "cuda" and _same_words(got[s], ref[s]), s
@@ -212,8 +213,6 @@ def test_kernel_in_a_graph_reads_the_key_at_replay(cuda):
     """A captured bundle reads its key words from the input buffer at each
     replay: new words there give the new key's uniforms, word for word,
     with no new capture; a capture records one launch, a replay none."""
-    from terra_tpu_torch import graphs
-
     pixel, sample, bounce = _card_lanes(147456, cuda)
     inputs = torch.zeros((4,), dtype=torch.int64, device=cuda)  # k0, k1, offset, row0
     inputs[0:2] = torch.tensor(trng.key_from_seed(1), device=cuda)
@@ -221,9 +220,9 @@ def test_kernel_in_a_graph_reads_the_key_at_replay(cuda):
     trng.path_uniform_bundle(inputs[0:2], pixel, sample, bounce, streams)  # warm-up
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with graphs._taken_back() as counts, torch.cuda.graph(graph):
+    with profile.launches_taken_back() as counts, torch.cuda.graph(graph):
         out = trng.path_uniform_bundle(inputs[0:2], pixel, sample, bounce, streams)
-    assert counts == [0, 0, 1]
+    assert counts == {"threefry": 1}
     for seed in (2, 2**32 + 5, 3000020):
         key = trng.key_from_seed(seed)
         inputs[0:2].copy_(torch.tensor(key, device=cuda))

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from terra_tpu_torch import profile
 from terra_tpu_torch.ops import row_accumulate as ra
 
 TILE = ra.TILE
@@ -119,12 +120,12 @@ def test_neither_cpu_nor_cuda_raises_before_any_build(monkeypatch):
         raise AssertionError("the kernel library was loaded")
 
     monkeypatch.setattr(ra, "load_kernel", no_build)
-    before = ra.launches
+    before = profile.kernel_launches.copy()
     with pytest.raises(ValueError, match="CUDA gradient"):
         ra.row_accumulate(torch.ones((4, 2), device="meta"), torch.zeros(4, dtype=torch.long,
                                                                          device="meta"), 3)
     ra.row_accumulate(torch.ones((4, 2)), torch.zeros(4, dtype=torch.long), 3)
-    assert ra.launches == before
+    assert profile.kernel_launches == before
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -155,9 +156,10 @@ def test_gradient_matches_jax(shape, n, kind, device, request):
     out = ra.gather(t, torch.from_numpy(idx).to(device))
     assert type(out.grad_fn).__name__ == "RowGatherBackward"
     assert out.grad_fn.table_shape == shape
-    before = ra.launches
+    before = profile.kernel_launches.copy()
     torch.sum(torch.from_numpy(w).to(device) * out).backward()
-    assert ra.launches - before == (len(ra.level_sizes(n)) if device == "cuda" else 0)
+    assert profile.kernel_launches - before == (
+        {"row_accumulate": len(ra.level_sizes(n))} if device == "cuda" else {})
     got = t.grad.cpu().numpy()
     scale = np.abs(want).max()
     assert scale > 0 and got.shape == shape
@@ -205,11 +207,11 @@ def test_kernel_matches_plain(cuda, kind, n, rows, cols):
     grad = _grad(n, cols, n)
     want = ra.row_accumulate(torch.from_numpy(grad), torch.from_numpy(ids), rows).numpy()
     g, i = torch.from_numpy(grad).to(cuda), torch.from_numpy(ids).to(cuda)
-    before = ra.launches
+    before = profile.kernel_launches.copy()
     a = ra.row_accumulate(g, i, rows)
     b = ra.row_accumulate(g, i.to(torch.int32), rows)
     torch.cuda.synchronize()
-    assert ra.launches - before == 2 * len(ra.level_sizes(n))
+    assert profile.kernel_launches - before == {"row_accumulate": 2 * len(ra.level_sizes(n))}
     np.testing.assert_array_equal(_words(a.cpu().numpy()), _words(want))
     np.testing.assert_array_equal(_words(b.cpu().numpy()), _words(want))
 
@@ -218,8 +220,6 @@ def test_kernel_matches_plain(cuda, kind, n, rows, cols):
 def test_kernel_gradient_in_a_captured_graph(cuda):
     """RowGather's backward captured in a CUDA graph, replayed after the
     gradient's values change, gives the plain version's words."""
-    from terra_tpu_torch import graphs
-
     rows, n = 241764, 1 << 17
     ids = torch.from_numpy(_ids("row0_run", n, rows, 3)).to(cuda)
     table = torch.zeros((rows, 26), device=cuda, requires_grad=True)
@@ -228,9 +228,9 @@ def test_kernel_gradient_in_a_captured_graph(cuda):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     table.grad = None
-    with graphs._taken_back() as counts, torch.cuda.graph(graph):
+    with profile.launches_taken_back() as counts, torch.cuda.graph(graph):
         grad, = torch.autograd.grad(torch.sum(w * ra.gather(table, ids)), table)
-    assert counts == [0, 0, 0, len(ra.level_sizes(n))]
+    assert counts == {"row_accumulate": len(ra.level_sizes(n))}
     for seed in (5, 6):
         w.copy_(torch.from_numpy(_grad(n, 26, seed)))
         graph.replay()

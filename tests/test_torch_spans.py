@@ -62,10 +62,11 @@ def test_flag_read_spans_count_the_flag_reads(monkeypatch):
     reads = []
     real = graphs.drive
 
-    def spy(body):
-        out, trips = real(body)
-        blocks = trips // body.trips_per_step if body.trips_per_step else 0
-        reads.append(min(blocks, max(body.steps - 1, 0)))
+    def spy(unit):
+        out, trips = real(unit)
+        _, steps, trips_per_step = unit.loop
+        blocks = trips // trips_per_step if trips_per_step else 0
+        reads.append(min(blocks, max(steps - 1, 0)))
         return out, trips
 
     monkeypatch.setattr(graphs, "drive", spy)

@@ -13,7 +13,7 @@ import terra_tpu as tt
 from terra_tpu import intersect as jint
 from terra_tpu.accel import pallas_traverse as jpt
 import terra_tpu_torch as ttt
-from terra_tpu_torch import interop
+from terra_tpu_torch import interop, profile
 from terra_tpu_torch import intersect as tint
 from terra_tpu_torch.accel import pallas_traverse as tpt
 from tests.test_torch_scene import SMALL_COURTYARD, flatten
@@ -108,10 +108,10 @@ def _bad_inputs(case, ts):
 def test_wrapper_rejects_bad_inputs(case):
     _, ts = _scenes(33)
     fn, args, exc = _bad_inputs(case, ts)
-    before = tpt.launches
+    before = profile.kernel_launches.copy()
     with pytest.raises(exc):
         fn(*args)
-    assert tpt.launches == before
+    assert profile.kernel_launches == before
 
 
 @pytest.mark.parametrize("arity", [2, 4])

@@ -14,7 +14,7 @@ from terra_tpu import intersect as jint
 from terra_tpu.accel import lbvh as jlbvh
 from terra_tpu.accel import pallas_traverse as jpt
 import terra_tpu_torch as ttt
-from terra_tpu_torch import interop
+from terra_tpu_torch import interop, profile
 from terra_tpu_torch.accel import lbvh as tlbvh
 from terra_tpu_torch.accel import pallas_traverse as tpt
 from tests.test_torch_scene import SMALL_COURTYARD, flatten
@@ -252,10 +252,10 @@ def _bad(case):
 @pytest.mark.parametrize("case", ["device", "stack", "single_leaf", "encoding", "count_binary"])
 def test_wide_wrappers_reject_bad_inputs(case):
     fn, exc = _bad(case)
-    before = tpt.launches4
+    before = profile.kernel_launches.copy()
     with pytest.raises(exc):
         fn()
-    assert tpt.launches4 == before
+    assert profile.kernel_launches == before
 
 
 @pytest.mark.parametrize("kind", ["binary", "f32", "paged"])
