@@ -35,6 +35,15 @@ exits non-zero (there is no CPU fallback):
      table and the level launches), its bytes bound, the plain version's
      time and PyTorch's deterministic ``index_put_(accumulate=True)`` in a
      graph of 100 (``library_ms``);
+  1d. the refit kernel (``csrc/bvh_refit.cu``, ``accel.lbvh.refit_`` on
+     CUDA positions) on the 241,764-triangle courtyard's SAH and LBVH
+     trees after a move of every vertex by up to +-0.001 (the training
+     cell's start): against the plain twin ``_refit_host`` (equal values,
+     a zero's sign aside) and against itself (equal bits over two calls),
+     two launches a refit; a refit's device time in a captured graph of
+     100, its bytes bound priced from the shapes, and the wall time of the
+     host refit it replaced (the positions and the topology to the host,
+     ``_refit_host``, the boxes back, between synchronisations);
   2. binary-kernel gate on the 241,764-triangle courtyard: the kernel
      against its plain PyTorch version on the card (2^20 camera rays, 2^18
      uniform random rays, 2^18 occlusion rays with t_max, plus
@@ -131,7 +140,7 @@ exits non-zero (there is no CPU fallback):
      albedo gradient against 6a's within 1e-3, against a central difference
      within 5%, two calls equal bit for bit; 6c ``recover`` on the 242k
      courtyard at 3b's size (cut: one sample per lane, rr_start_bounce 8)
-     for 4 Adam steps on attrs, textures and positions with a host refit
+     for 4 Adam steps on attrs, textures and positions with a refit
      every step, on eager steps (``value_and_grad`` and ``Adam.step``, every
      op from the host: the A/B baseline of 10c): ms per step split into
      forward, backward, Adam and refit plus repack, BVH4 launches per step,
@@ -166,7 +175,7 @@ exits non-zero (there is no CPU fallback):
      largest value at the others), each rank's BVH4 launches, the host-clock
      median of 3 renders per mesh (the ranks time-slice one card: no
      scaling is measured); 8b phase 6c's gradient and 2 Adam steps with a
-     host refit at mesh (2, 2), grad_chunks 2, against ``value_and_grad``
+     refit at mesh (2, 2), grad_chunks 2, against ``value_and_grad``
      and ``make_train_step`` on this process (loss and every field within
      1e-5 of its largest entry, grad_chunks 1 against 2 too, parameters
      and refit boxes bit-identical on every rank), ms per step and peak
@@ -1291,7 +1300,8 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
           f"lanes), 2 bounces, DIRECT, fields {fields}, 4 Adam steps at 3e-2: {total:.1f} ms/step "
           f"(host clock); peak memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
           f"above the {base / 2**30:.2f} GiB held before); launches binary {launches['binary']} "
-          f"bvh4 {launches['bvh4']} row_accumulate {launches['row_accumulate']}", flush=True)
+          f"bvh4 {launches['bvh4']} row_accumulate {launches['row_accumulate']} bvh_refit "
+          f"{launches['bvh_refit']}", flush=True)
     for i in range(4):
         print(f"  step {i}: loss {losses[i]:.6e}; forward {fwd[i]:.1f} ms (of which table pack "
               f"{rec['pack'][i]:.1f} ms), backward {bwd[i]:.1f} ms, Adam {rec['adam'][i]:.2f} "
@@ -1344,7 +1354,8 @@ def _phase6c(torch, ttt, pt, scene, cam, dev, side=384):
           f"{[f'{x:.4e}' for x in losses2]}, launches bvh4 {launches2})", flush=True)
     if not (all(np.isfinite(losses)) and all(rec["finite"]) and np.isfinite(loss_end)
             and loss_two < loss_start and contained and moved > 0 and same[True]
-            and launches["bvh4"] > 0 and launches["row_accumulate"] > 0):
+            and launches["bvh4"] > 0 and launches["row_accumulate"] > 0
+            and launches["bvh_refit"] == 8):
         raise AssertionError("phase 6c failed a gate")
     return launches, {"ms_per_step": total, "forward_ms": fwd, "backward_ms": bwd,
                       "adam_ms": rec["adam"], "refit_ms": rec["refit"], "pack_ms": rec["pack"],
@@ -1633,6 +1644,75 @@ def _phase1c(torch) -> dict:
               f"{row['library_ms'] * 1e3:.1f} us in a graph (max rel to the kernel "
               f"{row['library_max_rel']:.2e})", flush=True)
         out[name] = row
+    kernel_launches.clear()  # the comparisons and timings are not the main path's
+    return out
+
+
+def _phase1d(torch, ttt) -> dict:
+    """Phase 1d. Returns {builder: {"leaves", "internal", "leaf_size",
+    "ms", "bound_ms", "host_ms"}}: a refit's device time as a captured
+    graph of 100 refits replays it (both launches and the scratch), the
+    bound (the slot ids, vertex ids and corners of every leaf slot, the
+    topology and the parents, the children's boxes read and every box
+    written, each byte once, at 3.35 TB/s) and the host refit's wall time
+    (mean of 3, between synchronisations). The kernel's boxes are held to
+    ``_refit_host``'s on host copies, and to a second call's bits."""
+    from terra_tpu_torch.accel import lbvh
+    from terra_tpu_torch.profile import kernel_launches
+
+    dev = torch.device("cuda")
+    geometry = ttt.scenes.courtyard(device=dev).geometry
+    gen = torch.Generator().manual_seed(24)
+    step = (torch.rand(geometry.positions.shape, generator=gen) * 2 - 1) * 1e-3
+    moved = dataclasses.replace(geometry, positions=geometry.positions + step.to(dev))
+    out = {}
+    for builder in ("sah", "lbvh"):
+        bvh = lbvh.build(geometry, builder=builder)
+        host = [t.cpu().numpy() for t in (moved.positions, moved.tri_vidx, bvh.leaf_tri,
+                                          bvh.node_left, bvh.node_right)]
+        want_min, want_max = (torch.from_numpy(x) for x in lbvh._refit_host(*host))
+        kernel_launches.clear()
+        a, b = lbvh.refit(bvh, moved), lbvh.refit(bvh, moved)
+        torch.cuda.synchronize()
+        equal = torch.equal(a.node_min.cpu(), want_min) and torch.equal(a.node_max.cpu(),
+                                                                        want_max)
+        repeat = all(torch.equal(getattr(a, f).view(torch.int32), getattr(b, f).view(torch.int32))
+                     for f in ("node_min", "node_max"))
+        if not equal or not repeat or kernel_launches["bvh_refit"] != 4:
+            raise AssertionError(f"bvh_refit on the {builder} tree: equal to the plain twin "
+                                 f"{equal}, bits repeat {repeat}, "
+                                 f"{kernel_launches['bvh_refit']} launches (4 expected)")
+        ni, c, leaf = bvh.num_internal, bvh.num_leaves, bvh.leaf_size
+        nbytes = (c * leaf * (4 + 3 * 4 + 9 * 4)  # slot ids, vertex ids, corners
+                  + ni * (2 * 4 + 2 * 4 + 4)  # children read, parents written, counters zeroed
+                  + ni * (4 + 2 * 4 + 4 + 2 * 24)  # a parent, its children, its counter, boxes
+                  + (ni + c) * 24)  # every box written
+        row = dict(leaves=c, internal=ni, leaf_size=leaf,
+                   ms=_graph_ms(torch, lambda: lbvh.refit_(a, moved), 100),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+        def host_refit():
+            pos, vidx = lbvh._host(moved)
+            bmin, bmax = lbvh._refit_host(pos, vidx, bvh.leaf_tri.cpu().numpy(),
+                                          bvh.node_left.cpu().numpy(),
+                                          bvh.node_right.cpu().numpy())
+            b.node_min.copy_(torch.as_tensor(bmin))
+            b.node_max.copy_(torch.as_tensor(bmax))
+
+        host_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_refit()
+            torch.cuda.synchronize()
+            host_s.append(time.perf_counter() - t0)
+        row["host_ms"] = float(np.mean(host_s)) * 1e3
+        print(f"phase 1d: bvh_refit on the courtyard's {builder} tree ({c} leaves of {leaf}, "
+              f"{ni} internal nodes): equal to the plain twin, bits repeat, 2 launches a refit; "
+              f"{row['ms'] * 1e3:.1f} us a refit in a graph (bound {row['bound_ms'] * 1e3:.1f} "
+              f"us, bytes); the host refit it replaced {row['host_ms']:.1f} ms "
+              f"({[round(x * 1e3, 1) for x in host_s]})", flush=True)
+        out[builder] = row
     kernel_launches.clear()  # the comparisons and timings are not the main path's
     return out
 
@@ -1980,7 +2060,7 @@ def _start_6c(torch, optim, scene):
 
 
 def _train_2(torch, optim, lbvh, step, start, key):
-    """Two steps of ``step`` from phase 6c's start with a host refit after
+    """Two steps of ``step`` from phase 6c's start with a refit after
     each, in place in a copy of the start's boxes, as recover() does (so a
     graphed step captures once); returns ([(loss, params, node_min,
     node_max, ms, peak GiB)] per step)."""
@@ -2277,7 +2357,7 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
           f"{ {k: f'{v:.2e}' for k, v in rel.items()} }; grad_chunks 2 vs 1 "
           f"{ {k: f'{v:.2e}' for k, v in rel12.items()} }", flush=True)
     for i in range(2):
-        print(f"  Adam step {i} (grad_chunks 2, host refit): loss {losses[i]:.6e}, the unsharded "
+        print(f"  Adam step {i} (grad_chunks 2, a refit): loss {losses[i]:.6e}, the unsharded "
               f"loss at the same parameters {own[i]:.6e} (rel {own_rel[i]:.2e}), make_train_step's "
               f"{ref_losses[i]:.6e} (rel {step_rel[i]:.2e}); ms/step per rank "
               f"{[round(rk['train']['ms'][i], 1) for rk in ranks]} (unsharded on this process "
@@ -2299,7 +2379,7 @@ def _phase8ab(torch, ttt, pt, scene, cam, film_3b, render_3b_s, tmp):
         loss_ok = all(x["losses"] == x["eager_losses"] for x in d)
         print(f"phase 10d: the sharded step on {label}, grad_chunks 2 (graphed; eager = the "
               f"same bodies uncaptured): gradients bit-equal to the eager sharded step's "
-              f"{grad_ok}; after 2 Adam steps with a host refit, parameters bit-equal to "
+              f"{grad_ok}; after 2 Adam steps with a refit, parameters bit-equal to "
               f"eager's {param_ok}, losses equal {loss_ok}; ms/step per rank graphed "
               f"{[[round(x, 1) for x in y['ms']] for y in d]} against eager "
               f"{[[round(x, 1) for x in y['eager_ms']] for y in d]} (step 0 captures)",
@@ -3049,8 +3129,8 @@ def _phase10ab(torch, ttt, dev):
 
 def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
     """Phase 10c: phase 6c's ``recover`` (the courtyard at 3b's size, Adam
-    steps at 3e-2 on attrs, textures and positions, a host refit each
-    step) through the graphed step, for 5 steps: 6c's 4 and one whose
+    steps at 3e-2 on attrs, textures and positions, a refit each step)
+    through the graphed step, for 5 steps: 6c's 4 and one whose
     backward replays under the profiler. Gates: one capture over the run;
     the first 4 losses bit-equal to 6c's eager run step by step (else the
     first differing step and max rel, within the twin budget 2e-3); the tables
@@ -3164,7 +3244,7 @@ def _phase10c(torch, ttt, pt, scene, cam, eager, side=384):
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:4], eager["losses"]))
     first_diff = same_steps.index(False) if not all(same_steps) else None
     print(f"phase 10c: recover on the courtyard through the graphed step ({side}x{side}x8spp, "
-          f"fields {FIELDS_6C}, 5 Adam steps, host refit): captures {len(captures)} "
+          f"fields {FIELDS_6C}, 5 Adam steps, a refit a step): captures {len(captures)} "
           f"({[u.label for u in captures]}); losses {[f'{x:.6e}' for x in losses]}, the first 4 "
           f"bit-equal to 6c's eager run step by step {same_steps} (first differing step "
           f"{first_diff}, max rel {rel:.3e}); "
@@ -3521,8 +3601,8 @@ def main() -> None:
     print(f"phase 0: CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}",
           flush=True)
     from terra_tpu_torch import _build, graphs, intersect, native, probes
+    from terra_tpu_torch.accel import lbvh, traverse
     from terra_tpu_torch.accel import pallas_traverse as pt
-    from terra_tpu_torch.accel import traverse
     from terra_tpu_torch.ops import rng, row_accumulate
     from terra_tpu_torch.scripts import compact_bench
 
@@ -3539,7 +3619,8 @@ def main() -> None:
                  ("bvh_traverse cap 64", functools.partial(pt.load_kernel, 64)),
                  ("bvh4_traverse cap 64", functools.partial(pt.load_kernel4, 64)),
                  ("pattern_probes", probes.load_kernel), ("threefry", rng.load_kernel),
-                 ("row_accumulate", row_accumulate.load_kernel), ("terra_native", native.load))}
+                 ("row_accumulate", row_accumulate.load_kernel),
+                 ("bvh_refit", lbvh.load_kernel), ("terra_native", native.load))}
         build_s = {name: f.result() for name, f in futs.items()}
     print("phase 1: built, in parallel, " + ", ".join(
         f"{name} ({'g++' if name == 'terra_native' else 'nvcc sm_90a'}) in {sec:.2f} s"
@@ -3553,7 +3634,8 @@ def main() -> None:
              f"{pt.STACK_CAP}-entry stack"),
             ("pattern_probes", probes.kernel_path(), "one per site"),
             ("threefry", rng.kernel_path(), "stream pairs a launch"),
-            ("row_accumulate", row_accumulate.kernel_path(), "one level a launch"))}
+            ("row_accumulate", row_accumulate.kernel_path(), "one level a launch"),
+            ("bvh_refit", lbvh.kernel_path(), "parents, then the walk up"))}
     footprint64 = {
         name: _print_footprints(f"{name} (cap 64)", _build.build_log(path(64)), "64-entry stack")
         for name, path in (("bvh_traverse", pt.kernel_path), ("bvh4_traverse", pt.kernel4_path))}
@@ -3564,6 +3646,9 @@ def main() -> None:
 
     # 1c. the row-accumulate kernel at the training cell's tables
     accumulate_rows = _phase1c(torch)
+
+    # 1d. the refit kernel on the courtyard's trees
+    refit_rows = _phase1d(torch, ttt)
 
     # 2. binary-kernel gate on the full courtyard
     dev = torch.device("cuda")
@@ -3831,7 +3916,8 @@ def main() -> None:
 
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
-    if any(main_launches[k] <= 0 for k in ("binary", "bvh4", "threefry", "row_accumulate")) or \
+    if any(main_launches[k] <= 0
+           for k in ("binary", "bvh4", "threefry", "row_accumulate", "bvh_refit")) or \
             sorted(probe_rows) != sorted(probes.KERNELS) or \
             any(v["launches"] <= 0 for v in probe_rows.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -3887,6 +3973,13 @@ def main() -> None:
                     "bound_by": "bytes", "library_ms": tri["library_ms"],
                     "library": "torch.Tensor.index_put_(accumulate=True), deterministic",
                     "cases": accumulate_rows})
+    sah = refit_rows["sah"]
+    kernels.append({"name": "bvh_refit", "route": "cuda",
+                    "source": "terra_tpu_torch/csrc/bvh_refit.cu", "replaces": None,
+                    "launches": main_launches["bvh_refit"], "max_abs_err": 0.0,
+                    "ms": sah["ms"], "plain_ms": sah["host_ms"], "bound_ms": sah["bound_ms"],
+                    "bound_by": "bytes", "library_ms": None,
+                    "library": "no single PyTorch call refits a tree", "trees": refit_rows})
     for name, row in probe_rows.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "terra_tpu_torch/csrc/pattern_probes.cu",

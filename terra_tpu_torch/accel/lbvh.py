@@ -12,19 +12,34 @@ fallback builder; the port reaches it only by name, to hold the native
 builder to it. The JAX package grows leaves until its node table fits the
 TPU's scalar memory; that budget means nothing on a GPU, so the port takes
 a fixed ``DEFAULT_LEAF_SIZE``.
+
+The refit follows the positions' device. CPU positions take
+:func:`_refit_host`, the reference's NumPy refit. CUDA positions launch
+the hand-written kernel ``csrc/bvh_refit.cu`` (built at the first CUDA
+refit, two launches a refit, counted as ``"bvh_refit"`` in
+``profile.kernel_launches``; it replaces no Pallas kernel, as the
+reference refits on the host), which writes the same values into the
+tree's boxes on the card and reads nothing back. A CUDA call the kernel
+does not take raises; there is no fallback.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import native
-from ..profile import profiler
+from .._build import build_shared, nvcc
+from ..ops.rng import NVCC_FLAGS
+from ..profile import kernel_launches, profiler
 
-__all__ = ["LBVH", "build", "refit", "refit_", "DEFAULT_LEAF_SIZE"]
+__all__ = ["LBVH", "build", "refit", "refit_", "DEFAULT_LEAF_SIZE", "load_kernel",
+           "kernel_path"]
 
 # Leaves hold [4, 8] triangles (the SAH builder pads a leaf of n >= L/2
 # triangles to L by repetition). One thread tests a whole leaf, so small
@@ -33,6 +48,8 @@ __all__ = ["LBVH", "build", "refit", "refit_", "DEFAULT_LEAF_SIZE"]
 # 2 MiB of nodes, both well inside the H100's 50 MB L2.
 DEFAULT_LEAF_SIZE = 8
 _BUILDERS = {"sah": native.sah_build, "lbvh": native.lbvh_build}
+KERNEL_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
+                          "bvh_refit.cu")
 
 
 @dataclass
@@ -341,26 +358,91 @@ def _refit_host(pos, vidx, leaf_tri, left, right):
     return box_min, box_max
 
 
+def kernel_path() -> str:
+    """Path of the built refit kernel library (builds it if needed)."""
+    return build_shared([nvcc(), *NVCC_FLAGS], [KERNEL_SRC], "bvh_refit")
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build ``csrc/bvh_refit.cu`` (once per source/flag hash) and load it."""
+    lib = ctypes.CDLL(kernel_path())
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.terra_bvh_refit.restype = ctypes.c_int
+    lib.terra_bvh_refit.argtypes = [p, p, p, ctypes.c_int, p, p, i64, p, p, p, p, p]
+    return lib
+
+
+def _refit_cuda(bvh: LBVH, positions, tri_vidx) -> None:
+    """The refit as the kernel's two launches on the current stream, into
+    ``bvh.node_min`` / ``node_max``. Checks dtypes, contiguity, shapes and
+    devices, then allocates the parents and arrival counters with
+    ``torch.empty``; it reads nothing back, so a CUDA graph can capture it.
+    The tree is not checked for a cycle or for ids out of range (that would
+    read it back): it must be a builder's tree, as the plain twin's is."""
+    ni = bvh.node_left.shape[0]
+    c = ni + 1
+    want = {"positions": (positions, torch.float32, (positions.shape[0], 3)),
+            "tri_vidx": (tri_vidx, torch.int32, (tri_vidx.shape[0], 3)),
+            "leaf_tri": (bvh.leaf_tri, torch.int32, (c, bvh.leaf_tri.shape[-1])),
+            "node_left": (bvh.node_left, torch.int32, (ni,)),
+            "node_right": (bvh.node_right, torch.int32, (ni,)),
+            "node_min": (bvh.node_min, torch.float32, (ni + c, 3)),
+            "node_max": (bvh.node_max, torch.float32, (ni + c, 3))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"the refit kernel takes a contiguous {dtype} {name} of shape "
+                             f"{shape} (a tree of {ni} internal nodes and {c} leaves); got "
+                             f"{'a contiguous' if t.is_contiguous() else 'a non-contiguous'} "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != positions.device:
+            raise ValueError(f"the refit kernel takes every tensor on the positions' device "
+                             f"{positions.device}; {name} is on {t.device}")
+    if not positions.is_cuda:
+        raise ValueError(f"the refit kernel takes CUDA tensors; got positions on "
+                         f"{positions.device}")
+    dev = positions.device
+    parent = torch.empty((ni + c,), dtype=torch.int32, device=dev)
+    arrivals = torch.empty((max(ni, 1),), dtype=torch.int32, device=dev)
+    lib = load_kernel()
+    rc = lib.terra_bvh_refit(
+        positions.data_ptr(), tri_vidx.data_ptr(), bvh.leaf_tri.data_ptr(),
+        bvh.leaf_tri.shape[1], bvh.node_left.data_ptr(), bvh.node_right.data_ptr(), ni,
+        parent.data_ptr(), arrivals.data_ptr(), bvh.node_min.data_ptr(),
+        bvh.node_max.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bvh_refit launch failed: cudaError {rc}")
+    kernel_launches["bvh_refit"] += 2
+
+
 def refit_(bvh: LBVH, geometry) -> LBVH:
-    """:func:`refit` in place: the recomputed boxes are copied into
+    """:func:`refit` in place: the recomputed boxes are written into
     ``bvh.node_min`` and ``node_max``, so tables packed from them inside a
     captured graph see the moved triangles on its next replay. Returns
-    ``bvh``. The hot span ``terra.bvh.refit`` (``profile``) holds it all:
-    the read of the positions to the host, the refit there, the copies
-    back."""
+    ``bvh``. CPU positions take :func:`_refit_host` (the positions and the
+    topology to NumPy, the boxes copied back); CUDA positions launch the
+    kernel on the current stream, ordered before whatever is enqueued after
+    it there (the next step's replays), with no host read and no
+    synchronisation. The hot span ``terra.bvh.refit`` (``profile``) holds
+    either."""
     with profiler.hot("terra.bvh.refit"):
-        pos, vidx = _host(geometry)
-        node_min, node_max = _refit_host(
-            pos, vidx, bvh.leaf_tri.cpu().numpy(), bvh.node_left.cpu().numpy(),
-            bvh.node_right.cpu().numpy())
-        bvh.node_min.copy_(torch.as_tensor(node_min))
-        bvh.node_max.copy_(torch.as_tensor(node_max))
+        if geometry.positions.device.type == "cpu":
+            pos, vidx = _host(geometry)
+            node_min, node_max = _refit_host(
+                pos, vidx, bvh.leaf_tri.cpu().numpy(), bvh.node_left.cpu().numpy(),
+                bvh.node_right.cpu().numpy())
+            bvh.node_min.copy_(torch.as_tensor(node_min))
+            bvh.node_max.copy_(torch.as_tensor(node_max))
+        else:
+            _refit_cuda(bvh, geometry.positions.detach(), geometry.tri_vidx)
     return bvh
 
 
 def refit(bvh: LBVH, geometry) -> LBVH:
     """The tree with its boxes recomputed for ``geometry``'s (moved)
-    vertices on the same topology, on the host; the BVH4 overlay gathers
-    its child boxes from these at pack time, so it stays valid."""
+    vertices on the same topology (:func:`refit_` into copies of the
+    boxes: on the card for CUDA positions, in NumPy for CPU ones); the
+    BVH4 overlay gathers its child boxes from these at pack time, so it
+    stays valid."""
     return refit_(dataclasses.replace(bvh, node_min=bvh.node_min.clone(),
                                       node_max=bvh.node_max.clone()), geometry)

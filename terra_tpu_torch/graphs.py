@@ -341,8 +341,9 @@ def train_unit(owners: tuple, key, make_body: Callable, moving=(), watch=()):
     eagerly, ``replay`` = ``run``; it holds its owners until evicted) on
     the CPU. ``watch`` and ``moving`` as for :meth:`WeakCache.get`: the
     optimiser's parameters (watched) and the tree boxes a refit writes in
-    place (moving) are inputs the graphs read at each replay, and writing
-    them does not force a new capture."""
+    place (moving; ``lbvh.refit_``'s kernel, on the current stream, where
+    the replays run too) are inputs the graphs read at each replay, and
+    writing them does not force a new capture."""
     def make():
         body = make_body()
         return TrainUnit(body, body.inputs.device) if body.inputs.is_cuda else body

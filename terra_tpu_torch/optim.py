@@ -521,10 +521,12 @@ def recover(scene_init: Scene, cam: Camera, opts: RenderOptions, target,
     ``clip_to_physical`` projects the parameters after each step: attribute
     values to [0, attr_cap], where attr_cap keeps slots that started above
     1 (exponents) free up to 1e4, emission and texture data to >= 0. With
-    "positions" on a BVH scene the tree is refit on the host after every
-    step, in place in the run's own copy of its boxes, so a captured step
-    reads the moved triangles and the new boxes on its next replay and the
-    run captures once. With ``mesh`` (a ``parallel.mesh.Mesh``) every rank
+    "positions" on a BVH scene the tree is refit after every step
+    (``lbvh.refit_``: on the card for CUDA positions, on the current
+    stream ahead of the next step's replays, with no host read; in NumPy
+    for CPU ones), in place in the run's own copy of its boxes, so a
+    captured step reads the moved triangles and the new boxes on its next
+    replay and the run captures once. With ``mesh`` (a ``parallel.mesh.Mesh``) every rank
     runs the loop on the sharded step of :func:`make_train_step_sharded`,
     with the same clipping and refit, so every rank ends with the same
     scene."""
@@ -543,8 +545,8 @@ def recover(scene_init: Scene, cam: Camera, opts: RenderOptions, target,
     scene = scene_init
     refit_bvh = "positions" in fields and scene_init.bvh is not None
     if refit_bvh:
-        # moved vertices move the triangle bounds: the boxes are refit on
-        # the host (fixed topology, so no rebuild) into this copy
+        # moved vertices move the triangle bounds: the boxes are refit
+        # (fixed topology, so no rebuild) into this copy
         from .accel import lbvh
 
         bvh = scene_init.bvh

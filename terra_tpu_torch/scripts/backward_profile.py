@@ -16,10 +16,10 @@ textures halved, against the scene's own render (key 7). It prints
   and the backward's kernels by device time (a replayed graph records no
   op shapes, so the attribution is taken eagerly);
 - ``--steps`` graphed steps (``optim.make_train_step``) after the one
-  that captures, each followed by a host refit in place as ``recover``
-  does: ms a step (host clock ending in a synchronisation), each stage
-  of the unit by CUDA events, the refit, the pool's bytes and the peak
-  memory;
+  that captures, each followed by a refit in place (on the card) as
+  ``recover`` does: ms a step (host clock ending in a synchronisation),
+  each stage of the unit by CUDA events, the refit, the pool's bytes and
+  the peak memory;
 
 then one JSON line of all of it and the card's name and power limit.
 It needs a CUDA device.
@@ -167,8 +167,8 @@ def print_profile(res: dict, indent: str = "  ") -> None:
 
 
 def graphed_steps(scene, cam, opts, target, start, key, steps: int) -> dict:
-    """``steps`` graphed steps after the capturing one, a host refit in
-    place after each (``chip_smoke._train_2``'s loop)."""
+    """``steps`` graphed steps after the capturing one, a refit in place
+    after each (``chip_smoke._train_2``'s loop)."""
     from terra_tpu_torch import graphs, optim
     from terra_tpu_torch.accel import lbvh
 
@@ -259,7 +259,7 @@ def main(argv=None) -> dict:
           f"{graphed['first_step_ms']:.1f} ms): {[round(x, 1) for x in graphed['step_ms']]} ms; "
           f"inside the unit (CUDA events, mean) "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in graphed["stage_ms"].items())
-          + f"; host refit {[round(x, 1) for x in graphed['refit_ms']]} ms; captures "
+          + f"; refit {[round(x, 1) for x in graphed['refit_ms']]} ms; captures "
           f"{graphed['captures']}; pool {graphed['pool_bytes'] / 2**30:.3f} GiB; peak memory "
           f"{graphed['peak_gib']:.3f} GiB", flush=True)
     result = {"package": ttt.__file__, "eager": eager, "graphed": graphed, "card": smi}
