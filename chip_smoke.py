@@ -44,6 +44,15 @@ exits non-zero (there is no CPU fallback):
      100, its bytes bound priced from the shapes, and the wall time of the
      host refit it replaced (the positions and the topology to the host,
      ``_refit_host``, the boxes back, between synchronisations);
+  1e. the brute-force sweep kernel (``csrc/sweep.cu``,
+     ``intersect.raycast_sweep`` on CUDA rays) at ``cornell.render``'s
+     raycast: 262,144 jittered camera rays of the Cornell camera against
+     its 32 triangles, without and with a ``t_max`` (uniform in (0, 1000)),
+     both intersectors: against the plain grid ``raycast_brute`` on the
+     card (t, tri and hit word for word), one launch a raycast; a launch's
+     device time in a captured graph of 100, its bound (46 f32 operations
+     a pair over 67 TFLOP/s, or the rays read and the hits written over
+     3.35 TB/s) and the grid's time in a captured graph of 10;
   2. binary-kernel gate on the 241,764-triangle courtyard: the kernel
      against its plain PyTorch version on the card (2^20 camera rays, 2^18
      uniform random rays, 2^18 occlusion rays with t_max, plus
@@ -1713,6 +1722,60 @@ def _phase1d(torch, ttt) -> dict:
               f"us, bytes); the host refit it replaced {row['host_ms']:.1f} ms "
               f"({[round(x * 1e3, 1) for x in host_s]})", flush=True)
         out[builder] = row
+    kernel_launches.clear()  # the comparisons and timings are not the main path's
+    return out
+
+
+def _phase1e(torch, ttt) -> dict:
+    """Phase 1e. Returns {"<algo>/<closest|ranged>": {"rays", "tris", "ms",
+    "bound_ms", "bound_by", "grid_ms"}}: the sweep kernel at
+    ``cornell.render``'s raycast shape, held to the plain grid on the card
+    word for word, timed as a launch's share of a captured graph of 100
+    launches, against its bound and the grid's time in a graph of 10."""
+    from terra_tpu_torch import intersect
+    from terra_tpu_torch.profile import kernel_launches
+
+    dev = torch.device("cuda")
+    scene = ttt.scenes.cornell_box(device=dev)
+    corners = tuple(c.detach() for c in scene.geometry.corners())
+    slots = intersect.pack_sweep(*corners)
+    o, d = _camera_rays(torch, ttt.scenes.cornell_camera(device=dev), 512, dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    t_max = torch.rand(o.shape[0], generator=gen, device=dev) * 1000.0
+    n, tris = o.shape[0], corners[0].shape[0]
+    out = {}
+    for algo in ("mt", "watertight"):
+        for label, tm in (("closest", None), ("ranged", t_max)):
+            def kernel():
+                return intersect.raycast_sweep(o, d, *corners, t_max=tm, algo=algo, slots=slots)
+
+            def grid():
+                h = intersect.raycast_brute(o, d, *corners, algo=algo)
+                if tm is None:
+                    return h
+                occ = h.t < tm
+                return intersect.RayHit(t=h.t, tri=torch.where(occ, h.tri, 0), hit=occ)
+
+            kernel_launches.clear()
+            got, want = kernel(), grid()
+            torch.cuda.synchronize()
+            words = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                        for a, b in ((got.t, want.t), (got.tri, want.tri)))
+            words += int((got.hit != want.hit).sum())
+            if words or kernel_launches["sweep"] != 1:
+                raise AssertionError(f"sweep {algo} {label}: {words} words differ from the grid, "
+                                     f"{kernel_launches['sweep']} launches (1 expected)")
+            nbytes = n * (6 * 4 + (4 if tm is not None else 0) + 9) + tris * 40
+            ops = n * tris * 46 + tris * 6
+            bound_ms, bound_by = _bound(nbytes, ops)
+            row = dict(rays=n, tris=tris, hits=int(want.hit.sum()),
+                       ms=_graph_ms(torch, kernel, 100), bound_ms=bound_ms, bound_by=bound_by,
+                       grid_ms=_graph_ms(torch, grid, 10))
+            print(f"phase 1e: sweep {algo} {label} ({n} rays x {tris} triangles, {row['hits']} "
+                  f"hits): the grid's words, one launch; {row['ms'] * 1e3:.2f} us a launch in a "
+                  f"graph of 100 (bound {bound_ms * 1e3:.2f} us, {bound_by}); the grid "
+                  f"{row['grid_ms'] * 1e3:.1f} us", flush=True)
+            out[f"{algo}/{label}"] = row
     kernel_launches.clear()  # the comparisons and timings are not the main path's
     return out
 
@@ -3620,7 +3683,8 @@ def main() -> None:
                  ("bvh4_traverse cap 64", functools.partial(pt.load_kernel4, 64)),
                  ("pattern_probes", probes.load_kernel), ("threefry", rng.load_kernel),
                  ("row_accumulate", row_accumulate.load_kernel),
-                 ("bvh_refit", lbvh.load_kernel), ("terra_native", native.load))}
+                 ("bvh_refit", lbvh.load_kernel), ("sweep", intersect.load_kernel),
+                 ("terra_native", native.load))}
         build_s = {name: f.result() for name, f in futs.items()}
     print("phase 1: built, in parallel, " + ", ".join(
         f"{name} ({'g++' if name == 'terra_native' else 'nvcc sm_90a'}) in {sec:.2f} s"
@@ -3635,7 +3699,8 @@ def main() -> None:
             ("pattern_probes", probes.kernel_path(), "one per site"),
             ("threefry", rng.kernel_path(), "stream pairs a launch"),
             ("row_accumulate", row_accumulate.kernel_path(), "one level a launch"),
-            ("bvh_refit", lbvh.kernel_path(), "parents, then the walk up"))}
+            ("bvh_refit", lbvh.kernel_path(), "parents, then the walk up"),
+            ("sweep", intersect.kernel_path(), "ALGO, HAS_TMAX"))}
     footprint64 = {
         name: _print_footprints(f"{name} (cap 64)", _build.build_log(path(64)), "64-entry stack")
         for name, path in (("bvh_traverse", pt.kernel_path), ("bvh4_traverse", pt.kernel4_path))}
@@ -3649,6 +3714,9 @@ def main() -> None:
 
     # 1d. the refit kernel on the courtyard's trees
     refit_rows = _phase1d(torch, ttt)
+
+    # 1e. the sweep kernel at the Cornell pass's raycast
+    sweep_rows = _phase1e(torch, ttt)
 
     # 2. binary-kernel gate on the full courtyard
     dev = torch.device("cuda")
@@ -3917,7 +3985,7 @@ def main() -> None:
     print(f"main-path launches: {dict(main_launches)}; probes "
           f"{ {k: v['launches'] for k, v in probe_rows.items()} }", flush=True)
     if any(main_launches[k] <= 0
-           for k in ("binary", "bvh4", "threefry", "row_accumulate", "bvh_refit")) or \
+           for k in ("binary", "bvh4", "threefry", "row_accumulate", "bvh_refit", "sweep")) or \
             sorted(probe_rows) != sorted(probes.KERNELS) or \
             any(v["launches"] <= 0 for v in probe_rows.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -3980,6 +4048,13 @@ def main() -> None:
                     "ms": sah["ms"], "plain_ms": sah["host_ms"], "bound_ms": sah["bound_ms"],
                     "bound_by": "bytes", "library_ms": None,
                     "library": "no single PyTorch call refits a tree", "trees": refit_rows})
+    mt = sweep_rows["mt/closest"]
+    kernels.append({"name": "sweep", "route": "cuda",
+                    "source": "terra_tpu_torch/csrc/sweep.cu", "replaces": None,
+                    "launches": main_launches["sweep"], "max_abs_err": 0.0,
+                    "ms": mt["ms"], "plain_ms": mt["grid_ms"], "bound_ms": mt["bound_ms"],
+                    "bound_by": mt["bound_by"], "library_ms": None,
+                    "library": "no single PyTorch call finds a closest hit", "cases": sweep_rows})
     for name, row in probe_rows.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "terra_tpu_torch/csrc/pattern_probes.cu",

@@ -2,22 +2,34 @@
 
 The leaf tests (Moller-Trumbore and the Wald2013-style watertight test)
 work on component tuples so the same functions serve the dense brute-force
-sweep and the plain BVH traversal; the CUDA traversal kernel repeats their
-arithmetic in the same order. Raycasts return discrete ids and distances
-without gradients; ``surface.py`` recomputes the continuous hit.
+sweep and the plain BVH traversal; the CUDA kernels (the traversal and
+``csrc/sweep.cu``) repeat their arithmetic in the same order. Raycasts
+return discrete ids and distances without gradients; ``surface.py``
+recomputes the continuous hit.
+
+The brute-force raycast of the render is :func:`raycast_sweep`: CPU
+tensors take the plain grid :func:`raycast_brute`, CUDA tensors the sweep
+kernel (one launch, counted as ``sweep`` in ``profile.kernel_launches``),
+which gives the same words.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import os
 from dataclasses import dataclass
 
 import torch
 
+from ._build import build_shared
 from .ops import math3
+from .profile import kernel_launches
 
 __all__ = [
     "RayHit", "mask_dead_rays", "ray_aabb", "moller_trumbore", "mt_components",
-    "watertight_components", "mt_grid_components", "raycast_brute", "RAY_OFFSET_DIR",
-    "SURFACE_OFFSET_NORMAL", "T_FAR", "MISS_ORIGIN",
+    "watertight_components", "mt_grid_components", "raycast_brute", "raycast_sweep",
+    "pack_sweep", "load_kernel", "RAY_OFFSET_DIR", "SURFACE_OFFSET_NORMAL", "T_FAR",
+    "MISS_ORIGIN",
 ]
 
 RAY_OFFSET_DIR = 1e-3        # origin nudge along the direction
@@ -25,6 +37,8 @@ SURFACE_OFFSET_NORMAL = 1e-4  # origin offset along the normal
 T_FAR = 3.4e38
 # Origin of the canonical ray of a terminated lane: far outside any scene.
 MISS_ORIGIN = 3.0e5
+KERNEL_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "sweep.cu")
+_ALGOS = {"mt": 0, "watertight": 1}
 
 
 @dataclass
@@ -219,3 +233,91 @@ def raycast_brute(o, d, tri_a, tri_b, tri_c, ray_chunk: int = 0, tri_block: int 
             best_i[r0:r0 + ray_chunk] = bi
     hit = best_t < T_FAR
     return RayHit(t=best_t, tri=torch.where(hit, best_i, 0), hit=hit)
+
+
+def pack_sweep(tri_a, tri_b, tri_c):
+    """(T, 10) f32 rows of the triangles in id order, as the sweep kernel
+    stages them: the corners a, b, c and the id's i32 bits (the traversal
+    kernels' 40-byte slot row, ``pallas_traverse._pack_slots``). Pack once
+    and pass to :func:`raycast_sweep` as ``slots``."""
+    ids = torch.arange(tri_a.shape[0], dtype=torch.int32, device=tri_a.device)
+    return torch.cat([tri_a.detach(), tri_b.detach(), tri_c.detach(),
+                      ids[:, None].view(torch.float32)], dim=1).contiguous()
+
+
+def kernel_path() -> str:
+    """Path of the built sweep kernel library (builds it if needed), with
+    the traversal kernels' command: the leaf tests are theirs."""
+    from .accel import pallas_traverse as pt
+
+    return build_shared(pt._nvcc_cmd(pt.STACK_CAP), [KERNEL_SRC], "sweep",
+                        deps=[pt.COMMON_HDR])
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build ``csrc/sweep.cu`` (once per source/flag hash) and load it."""
+    lib = ctypes.CDLL(kernel_path())
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.terra_sweep.restype = ctypes.c_int
+    lib.terra_sweep.argtypes = [p, p, p, p, i64, i64, ctypes.c_int, p, p, p, p]
+    return lib
+
+
+def _sweep_cuda(o, d, t_max, slots, algo: str) -> RayHit:
+    """One launch of the sweep kernel on the current stream. Checks dtypes,
+    shapes and devices and allocates the outputs; it reads nothing back, so
+    a CUDA graph can capture it."""
+    n = o.shape[0]
+    want = {"o": (o, (n, 3)), "d": (d, (n, 3)), "slots": (slots, (slots.shape[0], 10))}
+    if t_max is not None:
+        want["t_max"] = (t_max, (n,))
+    for name, (x, shape) in want.items():
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"the sweep kernel takes a float32 {name} of shape {shape}; got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != o.device:
+            raise ValueError(f"the sweep kernel takes every tensor on the rays' device "
+                             f"{o.device}; {name} is on {x.device}")
+    if not slots.is_contiguous():
+        raise ValueError("the sweep kernel takes contiguous slots (pack_sweep)")
+    if not o.is_cuda:
+        raise ValueError(f"the sweep kernel takes CUDA tensors; got rays on {o.device}")
+    o, d = o.detach().contiguous(), d.detach().contiguous()
+    if t_max is not None:
+        t_max = t_max.detach().contiguous()
+    best_t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    tri = torch.empty((n,), dtype=torch.int32, device=o.device)
+    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
+    if n:
+        rc = load_kernel().terra_sweep(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr() if t_max is not None else None,
+            slots.data_ptr(), n, slots.shape[0], _ALGOS[algo], best_t.data_ptr(),
+            tri.data_ptr(), hit.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"sweep launch failed: cudaError {rc}")
+        kernel_launches["sweep"] += 1
+    return RayHit(t=best_t, tri=tri, hit=hit)
+
+
+def raycast_sweep(o, d, tri_a, tri_b, tri_c, t_max=None, algo: str = "mt",
+                  slots=None) -> RayHit:
+    """Closest hit of each ray (o, d: (N, 3)) over every triangle, the lowest
+    id winning at equal t. With ``t_max`` (N,) it is the ranged occlusion
+    query: ``hit`` means t < t_max and ``tri`` is 0 where it does not, ``t``
+    still the closest hit's. CPU rays take the plain grid
+    :func:`raycast_brute`; rays on another device launch the sweep kernel
+    (``csrc/sweep.cu``; it replaces no Pallas kernel, the reference's sweep
+    being jnp) on ``slots`` (:func:`pack_sweep` of the corners, packed here
+    when not given), or raise: nothing falls back to the grid. Both give the
+    same words; neither carries a gradient."""
+    leaf_test(algo)  # an unknown intersector raises, on every device
+    if o.device.type != "cpu":
+        if slots is None:
+            slots = pack_sweep(tri_a, tri_b, tri_c)
+        return _sweep_cuda(o, d, t_max, slots, algo)
+    h = raycast_brute(o, d, tri_a, tri_b, tri_c, algo=algo)
+    if t_max is None:
+        return h
+    occ = h.t < t_max
+    return RayHit(t=h.t, tri=torch.where(occ, h.tri, 0), hit=occ)

@@ -181,8 +181,9 @@ profiler = Profiler()
 
 # Kernel launches by kernel name: each hand-written kernel's wrapper adds 1
 # under its name as it enqueues a launch ("binary", "bvh4", "threefry",
-# "row_accumulate", "probe"), and a graph replay adds what its capture
-# counted (``graphs``). Readers clear it or copy it; nobody rebinds it.
+# "row_accumulate", "bvh_refit", "sweep", "probe"), and a graph replay adds
+# what its capture counted (``graphs``). Readers clear it or copy it;
+# nobody rebinds it.
 kernel_launches: collections.Counter = collections.Counter()
 
 

@@ -72,7 +72,8 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions, leaf_of=None):
     """Raycast closure: nudges the origin by dir * RAY_OFFSET_DIR and
     traces through the BVH (``Accelerator.BVH`` on a scene committed with
     one; the tables of the kind ``pallas_traverse.wide_mode`` picks, packed
-    once) or the brute-force sweep. With ``t_max`` it is the ranged
+    once) or the brute-force sweep (``intersect.raycast_sweep``; its rows
+    packed once). With ``t_max`` it is the ranged
     occlusion query of NEE shadow rays: ``hit`` means occluded within
     t_max. The BVH path sorts each batch by parent-hit keys (``sort_hint``,
     the previous hit's triangle per lane, through the leaf-of-triangle
@@ -102,14 +103,13 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions, leaf_of=None):
         return raycast
 
     tri_a, tri_b, tri_c = corners
+    # the sweep kernel's rows, packed once a context (CPU corners take the grid)
+    slots = intersect.pack_sweep(*corners) if tri_a.device.type != "cpu" else None
 
     def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
         o = o + d * intersect.RAY_OFFSET_DIR
-        h = intersect.raycast_brute(o, d, tri_a, tri_b, tri_c, algo=algo)
-        if t_max is None:
-            return h
-        occ = h.t < t_max
-        return intersect.RayHit(t=h.t, tri=torch.where(occ, h.tri, 0), hit=occ)
+        return intersect.raycast_sweep(o, d, tri_a, tri_b, tri_c, t_max=t_max, algo=algo,
+                                       slots=slots)
 
     return raycast
 
